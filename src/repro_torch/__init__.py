@@ -1,0 +1,16 @@
+"""HEP-BNN on PyTorch and CUDA: the port of the JAX package ``repro``.
+
+Module names mirror ``repro`` (``repro.core.mapper`` <->
+``repro_torch.core.mapper``).  This slice carries the paper's main
+path — packed BNN inference (:mod:`repro_torch.bnn`), the CPU + 7
+aspect-config xnor GEMM and the fused-segment kernel
+(:mod:`repro_torch.kernels`), profiling, mapping and the plan executor
+(:mod:`repro_torch.core`), and the serving runtime
+(:mod:`repro_torch.serving`).  Entry points take a ``device``: ``None``
+means ``cuda`` and raises without a card; ``"cpu"`` runs on CPU
+tensors.
+"""
+
+from repro_torch.device import HOST, resolve_device
+
+__all__ = ["HOST", "resolve_device"]

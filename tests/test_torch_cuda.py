@@ -1,0 +1,132 @@
+"""The port's CUDA kernels on the card, each held ``torch.equal`` to its
+plain PyTorch version on the same inputs (the plain versions are held to
+the JAX package by the other ``test_torch_*`` files).  Every test here
+is marked ``cuda`` and skips without an NVIDIA GPU; on a machine with
+one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports neither JAX nor the JAX package, so it also runs
+where only the port is installed."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.bnn import models as T_M  # noqa: E402
+from repro_torch.bnn.layers import extract_patch_words  # noqa: E402
+from repro_torch.core.mapped_model import build_segment_fns, run_plan  # noqa: E402
+from repro_torch.core.mapper import price_mapping  # noqa: E402
+from repro_torch.core.parallel_config import CONFIGS  # noqa: E402
+from repro_torch.core.profiler import ProfileTable  # noqa: E402
+from repro_torch.kernels import segment_cuda, xnor_gemm_cuda  # noqa: E402
+from repro_torch.kernels.ref import xnor_gemm_ref  # noqa: E402
+from repro_torch.kernels.segment_fused import _run_chain  # noqa: E402
+
+ASPECTS = ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")
+SPANS = {
+    "cifar10": {"whole": (0, 19), "tail_step": (14, 19), "mid_mp": (8, 13)},
+    "fashion_mnist": {"whole": (0, 10), "tail_step": (5, 10),
+                      "mid_mp": (1, 4)},
+}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _words(rng, *shape):
+    return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("aspects", ASPECTS)
+@pytest.mark.parametrize("tiles", [(64, 64), (16, 32), (48, 16)])
+def test_xnor_gemm_cuda_equals_plain(dev, aspects, tiles):
+    rng = np.random.default_rng(11)
+    for b, p, n, kw in ((2, 37, 21, 5), (1, 1024, 64, 9), (4, 64, 512, 144),
+                        (3, 1, 10, 32), (2, 100, 70, 33)):
+        a = torch.from_numpy(_words(rng, b, p, kw)).to(dev)
+        w = torch.from_numpy(_words(rng, n, kw)).to(dev)
+        before = xnor_gemm_cuda.launches
+        got = xnor_gemm_cuda(a, w, 32 * kw - 3, tuple(aspects),
+                             p_blk=tiles[0], n_blk=tiles[1])
+        torch.cuda.synchronize()
+        assert xnor_gemm_cuda.launches == before + 1
+        assert torch.equal(got, xnor_gemm_ref(a, w, 32 * kw - 3))
+
+
+def test_xnor_gemm_cuda_refuses_what_it_cannot_launch(dev):
+    a = torch.zeros((2, 8, 4), dtype=torch.int32, device=dev)
+    w = torch.zeros((6, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        xnor_gemm_cuda(a.transpose(1, 2).contiguous().transpose(1, 2), w, 1)
+    with pytest.raises(ValueError):
+        xnor_gemm_cuda(a, w.cpu(), 1)
+    empty = xnor_gemm_cuda(a[:0], w, 1)
+    assert empty.shape == (0, 8, 6)
+
+
+def _net(arch, dev, batch=3, scale=0.5):
+    m = T_M.build_model(arch, scale=scale)
+    packed = T_M.pack_params(m.specs, T_M.random_fp_params(m.specs, 2),
+                             device=dev)
+    x01 = np.random.default_rng(3).random(
+        (batch, *m.input_hw, m.in_channels), dtype=np.float32)
+    xs = [T_M.prepare_input_packed(torch.from_numpy(x01)).to(dev)]
+    for i in range(len(m.specs)):
+        xs.append(_run_chain(m.specs[i:i + 1], packed[i:i + 1], xs[-1]))
+    return m, packed, xs
+
+
+@pytest.mark.parametrize("arch", ["cifar10", "fashion_mnist"])
+@pytest.mark.parametrize("span", ["whole", "tail_step", "mid_mp"])
+def test_segment_cuda_equals_chain(dev, arch, span):
+    m, packed, xs = _net(arch, dev)
+    s, e = SPANS[arch][span]
+    before = segment_cuda.launches
+    got = segment_cuda(m.specs[s:e], packed[s:e])(xs[s])
+    torch.cuda.synchronize()
+    assert segment_cuda.launches == before + 1
+    assert torch.equal(got, xs[e])
+
+
+def test_conv_through_the_kernel_equals_the_plain_conv(dev):
+    m, packed, xs = _net("cifar10", dev)
+    x, p = xs[2], packed[2]
+    b, h, w, _ = x.shape
+    patches = extract_patch_words(x).reshape(b, h * w, -1)
+    got = xnor_gemm_cuda(patches, p["w_words"], p["k_true"], ("Y", "Z"))
+    assert torch.equal(got.reshape(b, h, w, -1), xs[3])
+
+
+def test_mapped_plan_on_the_card_equals_the_plain_forward(dev):
+    m, packed, xs = _net("cifar10", dev)
+    n = len(m.specs)
+    row = [{c: 1e-4 for c in CONFIGS} for _ in range(n)]
+    table = ProfileTable(
+        m.name, (3,), tuple(f"L{s.idx}:{s.notation}" for s in m.specs),
+        {3: row}, kernel_times={3: row},
+        h2d_times={3: [1e-5] * n}, d2h_times={3: [1e-5] * n})
+    mapping = ("CPU", "CPU") + ("XYZ",) * 12 + ("CPU",) + ("XZ",) * 4
+    ec = price_mapping(table, 3, mapping)
+    before = dict(x=xnor_gemm_cuda.launches, s=segment_cuda.launches)
+    got = run_plan(build_segment_fns(m, packed, ec, device=dev),
+                   device=dev)(xs[0].cpu())
+    assert torch.equal(got, xs[-1].cpu())
+    assert xnor_gemm_cuda.launches > before["x"]
+    fused = dataclasses.replace(
+        ec, fused_segments=((2, 14, "seg_cuda", 1e-9),))
+    got = run_plan(build_segment_fns(m, packed, fused, device=dev),
+                   device=dev)(xs[0].cpu())
+    assert torch.equal(got, xs[-1].cpu())
+    assert segment_cuda.launches == before["s"] + 1
