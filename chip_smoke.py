@@ -13,6 +13,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. kernel 2, ``segment_cuda``: the whole CIFAR-10 net, a tail span that
    starts at a step and a mid span that starts at a max-pool, B in
    {1, 8}, each ``torch.equal`` to the plain ``_run_chain``;
+4a. kernel 3, ``flash_attention_cuda``: the cases of
+   ``tests/test_kernels_attention.py`` (causal and full), the qwen2-0.5B
+   prefill shape, a ragged S and Sq = 1 against Sk = 2048, each held to
+   the plain ``flash_attention_plain`` (f32 at 1e-4: only the order of
+   the f32 sums differs; bf16 at 2e-2, the JAX bf16 test's tolerance);
+4b. LM serving at full width: qwen2-0.5B (24 layers, d_model 896) with
+   random weights from a seeded generator on the card.  An f32 check
+   (B 2 x S 256: last-position logits through the kernel against the
+   same forward with the plain attention, relative max error <= 1e-4),
+   then the bf16 serve: ``greedy_decode`` of 32 tokens from 4 x
+   2048-token prompts (NumPy seed 0), the teacher-forced decode logits
+   against a full forward with the plain attention, and one traced
+   prefill for the card's idle share;
+4c. kernel 3 timing at the prefill shape, beside its bound and
+   ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
+   (timed here only; the port never calls it);
 5. main path at full width: random fp weights from NumPy seed 0 ->
    ``pack_params`` -> measured ``profile_bnn_model`` -> DP mapping ->
    ``fuse_mapping`` with ``seg_cuda`` -> a ``ServingEngine`` answering
@@ -27,9 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the profiler's trace; CUDA events for the time per call and for the
    plain versions), beside the least time the card could take.
 
-The launch counts are zeroed just before phase 5 and read just after
-phase 6's untraced serving; both kernels must have launched while
-serving.  The last
+The launch counts are zeroed just before each main path and read just
+after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
+launch once per layer of the prefill, 24 times) and phases 5-6 up to
+phase 6's untraced serving (both BNN kernels must have launched while
+serving).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -59,6 +77,38 @@ RAGGED_SHAPE = ("ragged", 37, 21, 5, 150)   # P, N not tile multiples, Kw tail
 # (start, stop) layer spans of the CIFAR-10 net for the segment checks
 SEGMENT_SPANS = {"whole": (0, 19), "tail from step": (14, 19),
                  "mid from mp": (8, 13)}
+# qwen2-0.5B serving at full width (phase 4b): prompts, tokens generated
+LM_ARCH = "qwen2_0_5b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+LM_CHECK_BATCH, LM_CHECK_LEN = 2, 256
+# relative max error (max |a - b| over max |b|) allowed between the
+# kernel path and the plain-attention path: f32 differs only in the
+# attention's summation order; in bf16 the decode path (one token
+# against the cache) and the full forward round activations at other
+# places, over 24 layers
+LM_F32_REL = 1e-4
+LM_BF16_REL = 5e-2
+# kernel 3 against its plain version: f32 differs only in summation
+# order; bf16 outputs may differ by a bf16 rounding (the JAX bf16 test's)
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (label, b, h, hkv, sq, sk, d, dtype, causal)
+FLASH_CASES = tuple(
+    (f"{b}x{h}/{hkv}x{s}x{d} {'causal' if c else 'full'}", b, h, hkv, s, s,
+     d, "float32", c)
+    for b, h, hkv, s, d in ((1, 1, 1, 128, 32), (2, 4, 2, 256, 64),
+                            (1, 8, 1, 128, 128), (2, 6, 6, 64, 64))
+    for c in (True, False)
+) + (
+    ("decode Sq 1 / Sk 512", 2, 4, 2, 1, 512, 64, "float32", True),
+    ("bf16 1x2/1x128x64", 1, 2, 1, 128, 128, 64, "bfloat16", True),
+    ("logits x30", 1, 1, 1, 128, 128, 32, "float32", True),
+    ("qwen2 prefill", 4, 14, 2, 2048, 2048, 64, "bfloat16", True),
+    ("ragged S 2000", 4, 14, 2, 2000, 2000, 64, "bfloat16", True),
+    ("Sq 1 / Sk 2048", 4, 14, 2, 1, 2048, 64, "bfloat16", True),
+    ("Sq 1 / Sk 2048 f32", 4, 14, 2, 1, 2048, 64, "float32", True),
+)
+# Published H100 SXM dense bf16 tensor-core rate (data sheet)
+BF16_FLOP_PER_S = 989e12
 # Published H100 SXM rates: HBM3 bandwidth (data sheet) and POPC issue
 # rate per SM per clock for compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput).
@@ -177,10 +227,15 @@ def main() -> int:
         profile_bnn_model, profile_segment_variants,
     )
     from repro_torch.device import HOST
+    from repro_torch import configs as lm_configs
     from repro_torch.kernels import (
-        build, launch_counts, reset_launch_counts, segment_cuda,
-        xnor_gemm_cuda,
+        build, flash_attention_cuda, launch_counts, reset_launch_counts,
+        segment_cuda, xnor_gemm_cuda,
     )
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import modules as lm_modules
+    from repro_torch.models import steps as lm_steps
+    from repro_torch.models import transformer as lm
     from repro_torch.kernels.ref import xnor_gemm_ref
     from repro_torch.kernels.segment_fused import (
         _run_chain, segment_gemm_work, segment_weight_bytes,
@@ -265,6 +320,164 @@ def main() -> int:
                 raise AssertionError(f"segment_cuda {label} B={b} differs")
             log(f"[kernel 2] segment_cuda {label} [{s}:{e}] B={b}: "
                 f"torch.equal to _run_chain, out {tuple(out.shape)}")
+
+    # -- 4a. kernel 3 against its plain version -------------------------
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    err3 = 0.0
+    for label, b, h, hkv, sq, sk, d, dt, causal in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q = randn(b, h, sq, d, dtype=dtype,
+                  scale=30.0 if label == "logits x30" else 1.0)
+        k, v = randn(b, hkv, sk, d, dtype=dtype), randn(b, hkv, sk, d,
+                                                        dtype=dtype)
+        out = flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        if out.dtype != dtype or out.shape != q.shape:
+            raise AssertionError(f"flash_attention_cuda {label}: "
+                                 f"{out.dtype} {tuple(out.shape)}")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        tol = FLASH_TOL[dt]
+        if not bool((diff <= tol + tol * ref.float().abs()).all()):
+            raise AssertionError(f"flash_attention_cuda {label} differs: "
+                                 f"max_abs_err {err}")
+        err3 = max(err3, err)
+        log(f"[kernel 3] flash_attention_cuda {label} {dt}: within "
+            f"{tol} of flash_attention_plain, max_abs_err {err:.3e}")
+
+    # -- 4b. LM serving at full width: qwen2-0.5B -------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = lm_configs.get(LM_ARCH)
+    plain_attn = lm_modules.chunked_attention_plain
+
+    def rel_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def lm_generator():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = lm.init_params(cfg32, lm_generator(), dev)
+    toks32 = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_CHECK_BATCH, LM_CHECK_LEN))).to(dev)
+    lk, _, _ = lm.forward(cfg32, p32, toks32, last_only=True)
+    lp, _, _ = lm.forward(cfg32, p32, toks32, last_only=True,
+                          attention=plain_attn)
+    rel32 = rel_err(lk, lp)
+    if not (torch.isfinite(lk).all() and rel32 <= LM_F32_REL):
+        raise AssertionError(f"qwen2 f32 logits: kernel vs plain rel "
+                             f"{rel32}")
+    log(f"[lm] {cfg.name} f32 B={LM_CHECK_BATCH} S={LM_CHECK_LEN}: "
+        f"last-position logits through the kernel vs plain attention, "
+        f"relative max error {rel32:.3e} (limit {LM_F32_REL})")
+    del p32, lk, lp
+
+    params = lm.init_params(cfg, lm_generator(), dev)
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    prompt_t = torch.from_numpy(prompt).to(dev)
+    max_len = LM_PROMPT + LM_GEN
+    lm_steps.greedy_decode(cfg, params, prompt[:, :128], n_steps=2,
+                           max_len=130, device=dev)          # warm-up
+    stats: dict = {}
+    reset_launch_counts()
+    tokens = lm_steps.greedy_decode(cfg, params, prompt, n_steps=LM_GEN,
+                                    max_len=max_len, device=dev,
+                                    stats=stats)
+    lm_counts = launch_counts()
+    if lm_counts["flash_attention_cuda"] != cfg.n_layers:
+        raise AssertionError(
+            f"flash_attention_cuda launched "
+            f"{lm_counts['flash_attention_cuda']} times in one prefill of "
+            f"{cfg.n_layers} layers")
+    if tokens.shape != (LM_BATCH, LM_GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"greedy tokens {tuple(tokens.shape)}")
+    decode_ms = stats["decode_s"] * 1e3 / stats["decode_steps"]
+    tok_s = LM_BATCH * LM_GEN / (stats["prefill_s"] + stats["decode_s"])
+    log(f"[lm] {cfg.name} bf16 greedy_decode B={LM_BATCH} prompt "
+        f"{LM_PROMPT} gen {LM_GEN}: prefill {stats['prefill_s'] * 1e3:.3f} "
+        f"ms, decode {decode_ms:.3f} ms/token, {tok_s:.1f} tokens/s; "
+        f"launches {lm_counts}; sample {tokens[0, :8].tolist()}")
+
+    # teacher-forced: the decode path's logits on the greedy tokens
+    # against a full forward with the plain attention
+    last, cache = lm_steps.make_prefill_step(cfg)(params, prompt_t)
+    full = lm.init_cache(cfg, LM_BATCH, max_len, device=dev)
+    for key in ("k", "v"):
+        full[key][:, :, :LM_PROMPT] = cache[key]
+    full["len"] = LM_PROMPT
+    del cache
+    serve_step = lm_steps.make_serve_step(cfg)
+    dec = [last]
+    for t in range(LM_GEN - 1):
+        logits, full = serve_step(params, full, tokens[:, t:t + 1])
+        dec.append(logits)
+    dec = torch.stack(dec, dim=1)                      # (B, GEN, V)
+    del full
+    seq = torch.cat([prompt_t, tokens[:, :LM_GEN - 1]], dim=1)
+    ref_logits, _, _ = lm.forward(cfg, params, seq, attention=plain_attn)
+    ref_logits = ref_logits[:, LM_PROMPT - 1:]
+    rel16 = rel_err(dec, ref_logits)
+    agree = float((dec.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    del ref_logits, seq
+    if not (torch.isfinite(dec).all() and rel16 <= LM_BF16_REL):
+        raise AssertionError(f"qwen2 bf16 teacher-forced logits: rel "
+                             f"{rel16}")
+    log(f"[lm] teacher-forced bf16 logits at {LM_GEN} positions (prefill "
+        f"through the kernel + decode steps) vs a full forward with the "
+        f"plain attention: relative max error {rel16:.3e} (limit "
+        f"{LM_BF16_REL}), argmax agreement {agree:.4f}")
+    prefill = lm_steps.make_prefill_step(cfg)
+    prefill(params, prompt_t)
+    wall, busy, by_name = device_trace(lambda: prefill(params, prompt_t))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    lm_idle = 1 - busy / wall
+    log(f"[lm] one traced prefill B={LM_BATCH} S={LM_PROMPT}: wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms, idle "
+        f"{100 * lm_idle:.1f}%; by activity: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+
+    # -- 4c. kernel 3 timing at the prefill shape ------------------------
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    # the layout the main path hands the kernel: (B,S,H,D) seen as (B,H,S,D)
+    qf = randn(LM_BATCH, LM_PROMPT, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    kf = randn(LM_BATCH, LM_PROMPT, Hkv, D,
+               dtype=torch.bfloat16).transpose(1, 2)
+    vf = randn(LM_BATCH, LM_PROMPT, Hkv, D,
+               dtype=torch.bfloat16).transpose(1, 2)
+    k3_ms, how = kernel_ms(lambda: flash_attention_cuda(qf, kf, vf),
+                           "flash_attention_kernel", 20)
+    k3_call = time_ms(lambda: flash_attention_cuda(qf, kf, vf), 20)
+    k3_plain = time_ms(lambda: flash_attention_plain(qf, kf, vf), 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        k3_lib = time_ms(lambda: sdpa(qf, kf, vf, is_causal=True,
+                                      enable_gqa=True), 20)
+        lib_how = "enable_gqa"
+    except TypeError:   # a PyTorch without enable_gqa: k/v expanded first
+        ke = kf.repeat_interleave(H // Hkv, dim=1)
+        ve = vf.repeat_interleave(H // Hkv, dim=1)
+        k3_lib = time_ms(lambda: sdpa(qf, ke, ve, is_causal=True), 20)
+        lib_how = "k/v expanded"
+    flops = 2 * 2 * LM_BATCH * H * LM_PROMPT * LM_PROMPT * D * 0.5
+    n_bytes = 2 * (2 * qf.numel() + kf.numel() + vf.numel())  # q,k,v,o
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    k3_bound = max(t_ops, t_bytes)
+    k3_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"[time] flash_attention_cuda B={LM_BATCH} H={H}/{Hkv} "
+        f"S={LM_PROMPT} D={D} bf16 causal: device {k3_ms:.4f} ms ({how}), "
+        f"per call {k3_call:.4f} ms, plain {k3_plain:.3f} ms, "
+        f"scaled_dot_product_attention {k3_lib:.4f} ms ({lib_how}), bound "
+        f"{k3_bound:.5f} ms ({k3_by}: {flops / 1e9:.2f} GFLOP, "
+        f"{n_bytes / 1e6:.1f} MB); {flops / k3_ms / 1e9:.1f} TFLOP/s")
+    del params, qf, kf, vf
+    torch.cuda.empty_cache()
 
     # -- 5./6. the main path: profile -> map -> fuse -> serve ------------
     rng = np.random.default_rng(SEED)
@@ -408,6 +621,12 @@ def main() -> int:
          "launches": main_counts["segment_cuda"], "max_abs_err": err2,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "flash_attention_cuda", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:73",
+         "launches": lm_counts["flash_attention_cuda"], "max_abs_err": err3,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib},
     ]
     log(device_line)
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,86 @@
+"""Assigned-architecture registry, pure data: ``get(name)`` -> full
+ModelConfig, ``get_smoke(name)`` -> reduced same-family config for CPU
+tests.  A copy of ``repro.configs`` without ``input_specs``, which waits
+for the dry-run port.
+
+Shapes (assigned to every LM arch):
+  train_4k     seq 4,096   global_batch 256   (train_step)
+  prefill_32k  seq 32,768  global_batch 32    (prefill_step)
+  decode_32k   seq 32,768  global_batch 128   (serve_step, 1 new token)
+  long_500k    seq 524,288 global_batch 1     (serve_step; sub-quadratic
+                                               archs only)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_NAMES = (
+    "deepseek_moe_16b",
+    "grok_1_314b",
+    "zamba2_7b",
+    "llava_next_mistral_7b",
+    "qwen2_5_14b",
+    "olmo_1b",
+    "minitron_8b",
+    "qwen2_0_5b",
+    "mamba2_130m",
+    "musicgen_medium",
+    # the paper's own models live in repro_torch.bnn.models (image BNNs)
+)
+
+
+def _mod(name: str):
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get(name: str) -> ModelConfig:
+    return _mod(canonical(name)).config()
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _mod(canonical(name)).smoke_config()
+
+
+def canonical(name: str) -> str:
+    n = name.replace("-", "_").replace(".", "_")
+    if n not in ARCH_NAMES:
+        raise KeyError(f"unknown arch {name!r}; have {ARCH_NAMES}")
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str        # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524_288, 1),
+}
+
+
+def cell_supported(cfg: ModelConfig, shape: str) -> bool:
+    """long_500k requires sub-quadratic context (ssm/hybrid)."""
+    if shape == "long_500k":
+        return cfg.subquadratic
+    return True
+
+
+__all__ = [
+    "ARCH_NAMES",
+    "SHAPES",
+    "ShapeCell",
+    "canonical",
+    "cell_supported",
+    "get",
+    "get_smoke",
+]

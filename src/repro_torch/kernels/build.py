@@ -125,6 +125,11 @@ def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif stem == "segment_fused":
         lib.segment_fused_launch.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.segment_fused_launch.restype = i
+    elif stem == "flash_attention":
+        lib.flash_attention_launch.argtypes = (
+            [p] * 4 + [i] * 7 + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, i, i, p])
+        lib.flash_attention_launch.restype = i
     err = getattr(lib, f"{stem}_error_string")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p

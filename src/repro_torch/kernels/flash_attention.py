@@ -1,0 +1,171 @@
+"""Blockwise online-softmax (flash) attention as a CUDA kernel for Hopper.
+
+``flash_attention_cuda(q, k, v, *, causal, scale, kv_offset)`` computes
+softmax attention for ``q (B, H, Sq, D)`` and ``k, v (B, Hkv, Sk, D)``,
+``Hkv | H`` (GQA: query head ``h`` reads kv head ``h // (H // Hkv)``).
+Causal masking is suffix-aligned with an explicit offset: key ``j`` is
+visible to query ``i`` iff ``j <= i + kv_offset`` (``Sk - Sq`` for the
+ops entry, the caller's own offset for ``chunked_attention``).  Inputs
+are f32 or bf16, the arithmetic f32, the output in the input type.  It
+replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention_pallas``; the kernel
+source is ``csrc/flash_attention.cu``.
+
+On a CPU tensor the wrapper computes the plain version
+(:func:`flash_attention_plain`); on a CUDA tensor it launches the kernel
+or raises.  Ragged Sq and Sk are masked inside the kernel, so neither
+path pads.
+
+Masked keys get probability exactly 0, and key tiles masked for every
+query of a tile are skipped; for a query that sees at least one key this
+is the Pallas kernel's arithmetic (its finite -1e30 mask underflows to
+the same 0).  A query that sees no key at all (``i + kv_offset < 0``)
+gets a zero row here; the Pallas kernel returns the mean of ``v`` there
+and ``attention_ref`` NaN.  The LM path never asks (``kv_offset >= 0``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG = -1e30
+# the kernel's tiles (csrc/flash_attention.cu kBQ, kBK)
+Q_TILE = 64
+K_TILE = 64
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"attention needs q (B,H,Sq,D), k and v (B,Hkv,Sk,D); got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    if k.shape[1] == 0 or h % k.shape[1]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[1]} kv heads")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    kv_offset: int | None = None,
+    q_blk: int = Q_TILE,
+    k_blk: int = K_TILE,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, block by block: running
+    max, sum and accumulator in f32 over key blocks of ``k_blk``, for
+    each query block of ``q_blk``.  Same shapes, masking and output type
+    as :func:`flash_attention_cuda`; ``kv_offset`` defaults to
+    ``Sk - Sq``."""
+    check_operands(q, k, v)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = float(scale if scale is not None else D ** -0.5)
+    off = Sk - Sq if kv_offset is None else int(kv_offset)
+    if q_blk <= 0 or k_blk <= 0:
+        raise ValueError(f"blocks must be positive, got {q_blk}, {k_blk}")
+    qg = q.reshape(B, Hkv, g, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, Hkv, g, Sq, D), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, Sq, q_blk):
+        qb = qg[:, :, :, q0:q0 + q_blk]
+        nq = qb.shape[3]
+        qpos = torch.arange(q0, q0 + nq, device=q.device)
+        m = torch.full((B, Hkv, g, nq, 1), NEG, device=q.device)
+        l = torch.zeros((B, Hkv, g, nq, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, g, nq, D), device=q.device)
+        k_end = Sk
+        if causal:   # keys no query of this block can see
+            k_end = max(0, min(Sk, q0 + nq - 1 + off + 1))
+        for k0 in range(0, k_end, k_blk):
+            kb = kf[:, :, None, k0:k0 + k_blk]
+            vb = vf[:, :, None, k0:k0 + k_blk]
+            kpos = torch.arange(k0, k0 + kb.shape[3], device=q.device)
+            s = torch.einsum("bkgqd,bkgjd->bkgqj", qb, kb) * scale
+            if causal:
+                ok = kpos[None, :] <= qpos[:, None] + off
+                s = torch.where(ok, s, NEG)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            if causal:   # masked keys weigh exactly 0, as in the kernel
+                p = torch.where(ok, p, 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bkgqj,bkgjd->bkgqd", p, vb)
+            m = m_new
+        out[:, :, :, q0:q0 + nq] = torch.where(
+            l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    kv_offset: int | None = None,
+) -> torch.Tensor:
+    """Flash attention, q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in
+    ``q.dtype``.  ``kv_offset`` defaults to ``Sk - Sq``.  Operands may be
+    strided views (for example (B,S,H,D) tensors transposed to
+    (B,H,S,D)) as long as the head-dim axis is dense; the output has the
+    layout of ``q``."""
+    check_operands(q, k, v)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = float(scale if scale is not None else D ** -0.5)
+    off = Sk - Sq if kv_offset is None else int(kv_offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     kv_offset=off)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda: unsupported device "
+                         f"{q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention_cuda takes float32 or bfloat16 operands of "
+            f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda needs a dense head-dim axis")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"B {B} or H {H} exceeds the grid's 65535")
+    # the output in q's layout: (B,S,H,D) storage stays (B,S,H,D)
+    o = torch.empty_like(q)
+    if o.numel() == 0 or Sk == 0:
+        return o.zero_()
+    lib = build.load_library("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D, *strides,
+            scale, int(bool(causal)), off, stream,
+        )
+    build.check(lib, "flash_attention", rc)
+    flash_attention_cuda.launches += 1
+    return o
+
+
+flash_attention_cuda.launches = 0

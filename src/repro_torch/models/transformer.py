@@ -1,0 +1,401 @@
+"""Decoder for the attention families (dense / VLM / audio) — the
+counterpart of ``repro.models.transformer``.
+
+Parameters are a dict of stacked tensors with a leading L axis, as the
+JAX package's ``_shape_tree`` lays them out; a Python loop over L takes
+the place of ``lax.scan``.  Prefill attention is
+``modules.chunked_attention`` (the hand-written flash kernel on CUDA
+tensors); decode attention is the plain grouped einsum over the cache,
+outside any kernel in the JAX package too.
+
+Not ported yet, and raising ``NotImplementedError``: the ``moe``,
+``ssm`` and ``hybrid`` families (ROADMAP queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import modules as M
+from repro_torch.models.config import ModelConfig
+
+Cache = dict  # {'k': (L,B,Smax,Hkv,hd), 'v': same, 'len': int}
+
+_NOT_PORTED = ("moe", "ssm", "hybrid")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family in _NOT_PORTED or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
+            "port covers dense, vlm and audio (ROADMAP queue 1 item 12: "
+            "moe, mamba2/hybrid)")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# One card: no mesh, so the JAX package's sharding pins
+# (parallel/constrain.py, not ported) are identities here.
+def _pin_residual(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def constrain_kv(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Parameter shapes (the JAX package's layout)
+# ---------------------------------------------------------------------------
+
+
+def _attn_block_shapes(cfg: ModelConfig, prefix_l: tuple) -> dict:
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sh = {
+        "wq": prefix_l + (d, H * hd),
+        "wk": prefix_l + (d, Hkv * hd),
+        "wv": prefix_l + (d, Hkv * hd),
+        "wo": prefix_l + (H * hd, d),
+    }
+    if cfg.qkv_bias:
+        sh |= {
+            "bq": prefix_l + (H * hd,),
+            "bk": prefix_l + (Hkv * hd,),
+            "bv": prefix_l + (Hkv * hd,),
+        }
+    return sh
+
+
+def _mlp_shapes(cfg: ModelConfig, prefix_l: tuple, d_ff: int) -> dict:
+    d = cfg.d_model
+    if cfg.mlp_type == "silu":
+        return {
+            "wg": prefix_l + (d, d_ff),
+            "wu": prefix_l + (d, d_ff),
+            "wd": prefix_l + (d_ff, d),
+        }
+    return {"wu": prefix_l + (d, d_ff), "wd": prefix_l + (d_ff, d)}
+
+
+def _shape_tree(cfg: ModelConfig) -> dict:
+    _check_family(cfg)
+    d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+    lp = (L,)
+    tree: dict = {"embed": (V, d)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (d, V)
+    if cfg.norm == "rms":
+        tree["final_norm"] = (d,)
+    blocks: dict = {"attn": _attn_block_shapes(cfg, lp)}
+    if cfg.norm == "rms":
+        blocks["ln1"] = lp + (d,)
+        blocks["ln2"] = lp + (d,)
+    blocks["mlp"] = _mlp_shapes(cfg, lp, cfg.d_ff)
+    tree["blocks"] = blocks
+    return tree
+
+
+def _map_tree(fn: Callable, tree: dict, path: tuple = ()) -> dict:
+    """fn(path, leaf) over a nested dict, keys in sorted order (JAX's)."""
+    return {
+        k: _map_tree(fn, tree[k], path + (k,)) if isinstance(tree[k], dict)
+        else fn(path + (k,), tree[k])
+        for k in sorted(tree)
+    }
+
+
+def init_params(
+    cfg: ModelConfig, generator: torch.Generator, device=None
+) -> dict:
+    """Random initialization (smoke tests, examples, ``chip_smoke.py``):
+    scaled normal for matmuls, ones for norm scales, zeros for QKV
+    biases, as the JAX package initializes.  Draws on ``generator``'s
+    device (pass a CUDA generator to draw on the card) and returns
+    tensors of ``cfg.dtype`` on ``device`` (``None`` -> ``cuda``)."""
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+
+    def init_one(path, sh):
+        name = path[-1]
+        if name in ("ln1", "ln2", "final_norm"):
+            return torch.ones(sh, dtype=dt, device=dev)
+        if name in ("bq", "bk", "bv"):
+            return torch.zeros(sh, dtype=dt, device=dev)
+        fan_in = sh[-2] if len(sh) >= 2 else sh[-1]
+        w = torch.randn(sh, generator=generator, device=generator.device,
+                        dtype=torch.float32)
+        return (w / math.sqrt(fan_in)).to(device=dev, dtype=dt)
+
+    return _map_tree(init_one, _shape_tree(cfg))
+
+
+def params_from_jax(cfg: ModelConfig, tree_of_numpy: dict,
+                    device=None) -> dict:
+    """The JAX package's params (a nested dict of NumPy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's tensors of
+    ``cfg.dtype`` on ``device``.  Raises on a missing or extra leaf or a
+    shape that differs from the config's."""
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    shapes = _shape_tree(cfg)
+
+    def convert(path, sh):
+        node = tree_of_numpy
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise ValueError(f"params: missing {'/'.join(path)}")
+            node = node[key]
+        arr = np.array(node, dtype=np.float32)   # a copy we own
+        if arr.shape != sh:
+            raise ValueError(f"params {'/'.join(path)}: shape {arr.shape}, "
+                             f"config says {sh}")
+        return torch.from_numpy(arr).to(device=dev, dtype=dt)
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,)
+
+    extra = set(leaves(tree_of_numpy)) - set(leaves(shapes))
+    if extra:
+        raise ValueError(f"params: leaves the config has not: {sorted(extra)}")
+    return _map_tree(convert, shapes)
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The reverse of :func:`params_from_jax`: NumPy arrays on the host,
+    bf16 widened to float32 (NumPy has no bf16)."""
+    def one(path, t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return _map_tree(one, params)
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer i of a stacked block tree (views, no copies)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _proj_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    q = M.rope(q, positions, cfg.rope_theta)
+    k = M.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
+              attention: Optional[Callable] = None):
+    """Train / prefill attention. Returns (out, (k, v)).
+
+    ``attention`` defaults to ``modules.chunked_attention``, which
+    launches the flash kernel on CUDA tensors; ``chip_smoke.py`` passes
+    ``modules.chunked_attention_plain`` to hold the kernel path against
+    the plain one on the card.  (The JAX package's context-parallel
+    variant exists only under a mesh, which one card has not.)"""
+    q, k, v = _proj_qkv(cfg, p, x, positions)
+    o = (attention or M.chunked_attention)(
+        q, k, v, causal=True,
+        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+        remat_chunks=cfg.remat,
+    )
+    B, S = x.shape[:2]
+    out = o.reshape(B, S, -1) @ p["wo"]
+    return out, (constrain_kv(k), constrain_kv(v))
+
+
+def attn_decode(
+    cfg: ModelConfig, p: dict, x: torch.Tensor,
+    cache_k: torch.Tensor, cache_v: torch.Tensor, cache_len: int,
+):
+    """Single-token decode against a (B, Smax, Hkv, hd) cache.  Grouped
+    einsum avoids materializing repeated KV heads.  The new token's k/v
+    are written into the cache in place (the JAX step returns an updated
+    copy), and the same tensors are returned."""
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = H // Hkv
+    if not 0 <= cache_len < cache_k.shape[1]:
+        raise ValueError(f"decode at position {cache_len} of a cache of "
+                         f"{cache_k.shape[1]}")
+    positions = torch.full((B, 1), cache_len, dtype=torch.int64,
+                           device=x.device)
+    q, k, v = _proj_qkv(cfg, p, x, positions)
+    cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, Hkv, g, hd)
+    s = torch.einsum(
+        "bkgd,bskd->bkgs", qg.float(), cache_k.float()
+    ) * (hd ** -0.5)                              # (B,Hkv,g,Smax)
+    kpos = torch.arange(cache_k.shape[1], device=x.device)
+    s = torch.where(kpos <= cache_len, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", w, cache_v.float()).to(x.dtype)
+    out = o.reshape(B, 1, H * hd) @ p["wo"]
+    return out, (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_type == "silu":
+        return M.gated_mlp(x, p["wg"], p["wu"], p["wd"])
+    if cfg.mlp_type == "relu2":
+        return M.relu2_mlp(x, p["wu"], p["wd"])
+    return M.gelu_mlp(x, p["wu"], p["wd"])
+
+
+def attn_block_apply(
+    cfg: ModelConfig, bp: dict, x: torch.Tensor, positions,
+    *, cache: Optional[dict] = None, cache_len=None,
+    attention: Optional[Callable] = None,
+):
+    """One attention block. Returns (x, kv_for_cache, aux_loss); the aux
+    loss is MoE's, so 0.0 for the families ported."""
+    x = _pin_residual(x)
+    h = M.apply_norm(cfg.norm, x, bp.get("ln1"))
+    if cache is None:
+        a, kv = attn_full(cfg, bp["attn"], h, positions, attention=attention)
+    else:
+        a, kv = attn_decode(
+            cfg, bp["attn"], h, cache["k"], cache["v"], cache_len
+        )
+    x = x + a
+    h2 = M.apply_norm(cfg.norm, x, bp.get("ln2"))
+    return x + _mlp_apply(cfg, bp["mlp"], h2), kv, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Full forward
+# ---------------------------------------------------------------------------
+
+
+def _embed(cfg: ModelConfig, params, tokens, frontend_embeds):
+    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(_dtype(cfg)), x], dim=1)
+    return x
+
+
+def _unembed(cfg: ModelConfig, params, x):
+    x = M.apply_norm(cfg.norm, x, params.get("final_norm"))
+    head = (
+        params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    )
+    return (x @ head).float()
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Any,
+    tokens: torch.Tensor,
+    *,
+    frontend_embeds: Optional[torch.Tensor] = None,
+    cache: Optional[Cache] = None,
+    return_cache: bool = False,
+    last_only: bool = False,
+    attention: Optional[Callable] = None,
+):
+    """Returns (logits, new_cache_or_None, moe_aux_loss).
+
+    cache=None             -> train / prefill over the full sequence
+    cache + tokens (B,1)   -> single-token decode (updates the cache's
+                              k/v in place)
+    last_only=True         -> unembed only the final position (prefill:
+                              avoids materializing (B,S,V) logits)
+    attention              -> the prefill attention (see attn_full)
+    """
+    _check_family(cfg)
+    x = _pin_residual(_embed(cfg, params, tokens, frontend_embeds))
+    B, S, _ = x.shape
+    decode = cache is not None and S == 1
+    positions = None if decode else (
+        torch.arange(S, device=x.device)[None, :].expand(B, S))
+    x, new_cache = _forward_attn(
+        cfg, params, x, positions, cache, decode, return_cache, attention)
+    if last_only:
+        x = x[:, -1:, :]
+    logits = _unembed(cfg, params, x)
+    if new_cache is not None:
+        new_cache["len"] = (cache["len"] if decode else 0) + (
+            1 if decode else S
+        )
+    if not (return_cache or decode):
+        new_cache = None
+    return logits, new_cache, torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
+
+
+def _forward_attn(cfg, params, x, positions, cache, decode, return_cache,
+                  attention=None):
+    blocks = params["blocks"]
+    if decode:
+        for i in range(cfg.n_layers):
+            x, _, _ = attn_block_apply(
+                cfg, _layer(blocks, i), x, None,
+                cache={"k": cache["k"][i], "v": cache["v"][i]},
+                cache_len=cache["len"],
+            )
+        return x, {"k": cache["k"], "v": cache["v"]}
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v), _ = attn_block_apply(
+            cfg, _layer(blocks, i), x, positions, attention=attention)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    if not return_cache:
+        return x, None
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+
+def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    _check_family(cfg)
+    kv = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd),
+          _dtype(cfg))
+    return {"k": kv, "v": kv}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> Cache:
+    """Zeroed KV cache on ``device`` (``None`` -> ``cuda``); ``len`` is a
+    Python int."""
+    dev = resolve_device(device)
+    c: dict = {k: torch.zeros(s, dtype=d, device=dev)
+               for k, (s, d) in _cache_shapes(cfg, batch, max_len).items()}
+    c["len"] = 0
+    return c

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card, each held ``torch.equal`` to its
-plain PyTorch version on the same inputs (the plain versions are held to
+"""The port's CUDA kernels on the card, each held to its plain PyTorch
+version on the same inputs (``torch.equal`` for the integer kernels,
+the stated tolerance for flash attention) (the plain versions are held to
 the JAX package by the other ``test_torch_*`` files).  Every test here
 is marked ``cuda`` and skips without an NVIDIA GPU; on a machine with
 one:
@@ -24,9 +25,15 @@ from repro_torch.core.mapped_model import build_segment_fns, run_plan  # noqa: E
 from repro_torch.core.mapper import price_mapping  # noqa: E402
 from repro_torch.core.parallel_config import CONFIGS  # noqa: E402
 from repro_torch.core.profiler import ProfileTable  # noqa: E402
-from repro_torch.kernels import segment_cuda, xnor_gemm_cuda  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    flash_attention_cuda,
+    segment_cuda,
+    xnor_gemm_cuda,
+)
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.ref import xnor_gemm_ref  # noqa: E402
 from repro_torch.kernels.segment_fused import _run_chain  # noqa: E402
+from repro_torch.models import modules as T_MOD  # noqa: E402
 
 ASPECTS = ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")
 SPANS = {
@@ -130,3 +137,58 @@ def test_mapped_plan_on_the_card_equals_the_plain_forward(dev):
                    device=dev)(xs[0].cpu())
     assert torch.equal(got, xs[-1].cpu())
     assert segment_cuda.launches == before["s"] + 1
+
+
+# (b, h, hkv, sq, sk, d, dtype, causal): f32 is held at 1e-4 (only the
+# order of the f32 sums differs), bf16 at 2e-2 (the JAX bf16 test's)
+FLASH_CASES = {
+    "f32-gqa-causal": (2, 4, 2, 256, 256, 64, torch.float32, True),
+    "f32-mqa-full": (1, 8, 1, 128, 128, 128, torch.float32, False),
+    "f32-d32": (1, 2, 2, 128, 128, 32, torch.float32, True),
+    "bf16-qwen2-like": (1, 14, 2, 512, 512, 64, torch.bfloat16, True),
+    "ragged": (2, 4, 2, 200, 200, 64, torch.float32, True),
+    "ragged-full": (1, 4, 4, 77, 130, 64, torch.bfloat16, False),
+    "sq1": (2, 14, 2, 1, 2048, 64, torch.float32, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_attention_cuda_matches_plain(dev, name):
+    b, h, hkv, sq, sk, d, dt, causal = FLASH_CASES[name]
+    rng = np.random.default_rng(sorted(FLASH_CASES).index(name))
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, dt)
+        for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_chunked_attention_on_the_card_launches_once(dev):
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev)
+        for shape in ((2, 100, 4, 64), (2, 100, 2, 64), (2, 100, 2, 64)))
+    before = flash_attention_cuda.launches
+    got = T_MOD.chunked_attention(q, k, v, causal=True, q_chunk=32,
+                                  kv_chunk=32)
+    assert flash_attention_cuda.launches == before + 1
+    want = T_MOD.chunked_attention_plain(q, k, v, causal=True, q_chunk=32,
+                                         kv_chunk=32)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("what", ["float16", "head_dim_16", "head_dim_96"])
+def test_chunked_attention_on_the_card_raises_not_falls_back(dev, what):
+    d = {"head_dim_16": 16, "head_dim_96": 96}.get(what, 64)
+    dt = torch.float16 if what == "float16" else torch.float32
+    q = torch.zeros((1, 8, 2, d), dtype=dt, device=dev)
+    before = flash_attention_cuda.launches
+    with pytest.raises((TypeError, ValueError)):
+        T_MOD.chunked_attention(q, q, q, causal=True, q_chunk=8, kv_chunk=8)
+    assert flash_attention_cuda.launches == before

@@ -9,6 +9,7 @@ import ast
 import importlib
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -71,7 +72,8 @@ def test_scan_allows_the_port_itself():
 def test_scan_covers_the_whole_port():
     names = {p.name for p in SCANNED}
     assert {"chip_smoke.py", "xnor_popcount.py", "segment_fused.py",
-            "engine.py", "profiler.py"} <= names
+            "engine.py", "profiler.py", "flash_attention.py", "ops.py",
+            "transformer.py", "steps.py", "serve.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -128,17 +130,23 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize("entry", [
     "ServingEngine", "SegmentPipeline", "profile_bnn_model",
     "build_mapped_model", "pack_params", "fuse_mapping",
+    "greedy_decode", "init_params", "launch.serve",
 ])
 def test_entry_points_raise_without_a_card(entry):
+    from repro_torch import configs
     from repro_torch.bnn.models import pack_params, random_fp_params
     from repro_torch.core import (
         build_mapped_model, fuse_mapping, profile_bnn_model,
     )
     from repro_torch.core.profiler import ProfileTable
+    from repro_torch.launch import serve
+    from repro_torch.models import greedy_decode, init_params
     from repro_torch.serving import SegmentPipeline, ServingEngine
 
     _no_card()
     m, packed, ec = _small()
+    cfg = configs.get_smoke("qwen2_0_5b")
+    gen = torch.Generator().manual_seed(0)
     calls = {
         "ServingEngine": lambda: ServingEngine(m, packed, ec),
         "SegmentPipeline": lambda: SegmentPipeline(m, packed, ec),
@@ -149,6 +157,11 @@ def test_entry_points_raise_without_a_card(entry):
             m.specs, random_fp_params(m.specs, 0)),
         "fuse_mapping": lambda: fuse_mapping(
             m, packed, ProfileTable(m.name, (2,), ec.layer_labels, {}), ec),
+        "greedy_decode": lambda: greedy_decode(
+            cfg, init_params(cfg, gen, "cpu"), np.zeros((1, 4), np.int64),
+            n_steps=2, max_len=8),
+        "init_params": lambda: init_params(cfg, gen),
+        "launch.serve": lambda: serve.main(["--arch", "qwen2_0_5b"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

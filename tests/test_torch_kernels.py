@@ -125,7 +125,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     a, w = torch.from_numpy(_words(rng, 1, 4, 3)), torch.from_numpy(
         _words(rng, 6, 3))
     assert torch.equal(xnor_gemm_cuda(a, w, 90), xnor_gemm_ref(a, w, 90))
-    assert launch_counts() == {"xnor_gemm_cuda": 0, "segment_cuda": 0}
+    assert launch_counts() == {"xnor_gemm_cuda": 0, "segment_cuda": 0,
+                               "flash_attention_cuda": 0}
 
 
 # ---------------------------------------------------------------------------
