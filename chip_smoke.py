@@ -6,18 +6,31 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``;
+2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``,
+   the ``ptxas`` register / spill report of each kernel, and the count
+   of tensor-core MMA instructions (``HMMA``/``HGMMA``) in each flash
+   attention instantiation's SASS (``cuobjdump -sass``): a bf16
+   instantiation without one fails the run;
+2b. the card tests, ``pytest -m cuda tests/test_torch_cuda.py`` in a
+   child process: each kernel against its plain version over more
+   shapes than the phases below (flash attention at head dims 32/64/128,
+   GQA groups 1/2/7, ragged S, strided views with an offset, the
+   alignment refusal; ``segment_cuda`` at B 1/8/16/33 on both paper
+   nets and three spans); any failure fails the run;
 3. kernel 1, ``xnor_gemm_cuda``: all 7 aspect configurations at every
    CIFAR-10 GEMM shape, B in {1, 8}, plus a ragged shape, each
    ``torch.equal`` to the plain ``xnor_gemm_ref`` on the same inputs;
 4. kernel 2, ``segment_cuda``: the whole CIFAR-10 net, a tail span that
    starts at a step and a mid span that starts at a max-pool, B in
-   {1, 8}, each ``torch.equal`` to the plain ``_run_chain``;
+   {1, 8, 16, 33} (33 is no multiple of any tile), each ``torch.equal``
+   to the plain ``_run_chain``;
 4a. kernel 3, ``flash_attention_cuda``: the cases of
    ``tests/test_kernels_attention.py`` (causal and full), the qwen2-0.5B
    prefill shape, a ragged S and Sq = 1 against Sk = 2048, each held to
    the plain ``flash_attention_plain`` (f32 at 1e-4: only the order of
-   the f32 sums differs; bf16 at 2e-2, the JAX bf16 test's tolerance);
+   the f32 sums differs; bf16 at 2e-2, the JAX bf16 test's tolerance:
+   the tensor-core path rounds P to bf16 for P.V, an error of the size
+   of the bf16 output's own rounding), bf16 at head dims 32, 64, 128;
 4b. LM serving at full width: qwen2-0.5B (24 layers, d_model 896) with
    random weights from a seeded generator on the card.  An f32 check
    (B 2 x S 256: last-position logits through the kernel against the
@@ -43,6 +56,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the profiler's trace; CUDA events for the time per call and for the
    plain versions), beside the least time the card could take.
 
+Every traced window (the LM prefill, the three traced serving steps)
+reads the launch counts before and after it and fails if the trace
+shows fewer launches of a kernel than its wrapper counted.
+
 The launch counts are zeroed just before each main path and read just
 after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
 launch once per layer of the prefill, 24 times) and phases 5-6 up to
@@ -56,6 +73,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,6 +86,7 @@ SEED = 0
 PROFILE_BATCHES = (1, 4, 16)
 N_REQUESTS = 32
 CHECK_BATCHES = (1, 8)
+SEGMENT_BATCHES = (1, 8, 16, 33)
 # CIFAR-10 full-width GEMM shapes: (layer, P windows, N outputs, Kw, k_true)
 GEMM_SHAPES = (
     ("L1", 1024, 64, 9, 27), ("L3", 1024, 64, 18, 576),
@@ -101,6 +122,9 @@ FLASH_CASES = tuple(
 ) + (
     ("decode Sq 1 / Sk 512", 2, 4, 2, 1, 512, 64, "float32", True),
     ("bf16 1x2/1x128x64", 1, 2, 1, 128, 128, 64, "bfloat16", True),
+    ("bf16 D32 full", 2, 4, 2, 256, 256, 32, "bfloat16", False),
+    ("bf16 D128 MQA", 2, 8, 1, 256, 256, 128, "bfloat16", True),
+    ("bf16 D128 ragged full", 1, 4, 4, 77, 130, 128, "bfloat16", False),
     ("logits x30", 1, 1, 1, 128, 128, 32, "float32", True),
     ("qwen2 prefill", 4, 14, 2, 2048, 2048, 64, "bfloat16", True),
     ("ragged S 2000", 4, 14, 2, 2000, 2000, 64, "bfloat16", True),
@@ -171,9 +195,9 @@ def kernel_ms(fn, kernel: str, iters: int) -> tuple:
 
 
 def device_trace(fn) -> tuple:
-    """(wall ms, device-busy ms, {device activity: ms}) of one call of
-    `fn` under the profiler: busy is the union of the intervals in which
-    a kernel or a copy ran on the card."""
+    """(wall ms, device-busy ms, {device activity: ms}, {device activity:
+    count}) of one call of `fn` under the profiler: busy is the union of
+    the intervals in which a kernel or a copy ran on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -184,7 +208,7 @@ def device_trace(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, n_by_name = [], {}, {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -193,12 +217,98 @@ def device_trace(fn) -> tuple:
         name = ev.name.replace("(anonymous namespace)::", "")
         key = name.split("(")[0].split("<")[0].strip()[:40]
         by_name[key] = by_name.get(key, 0.0) + (e - s) / 1e3
+        n_by_name[key] = n_by_name.get(key, 0) + 1
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
-    return wall * 1e3, busy / 1e3, by_name
+    return wall * 1e3, busy / 1e3, by_name, n_by_name
+
+
+# each wrapper's CUDA kernel, as the profiler names it
+KERNEL_OF = {"xnor_gemm_cuda": "xnor_gemm_kernel",
+             "segment_cuda": "segment_kernel",
+             "flash_attention_cuda": "flash_attention_kernel"}
+
+
+def traced(label: str, fn, counts) -> tuple:
+    """`device_trace` of `fn`, held against the launch counters read
+    around it (`counts()` -> {wrapper: launches}): every launch a wrapper
+    counted must be in the trace, or the trace lost device work and its
+    busy and idle numbers are wrong."""
+    before = counts()
+    wall, busy, by_name, n_by_name = device_trace(fn)
+    after = counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    seen = {kern: sum(n for key, n in n_by_name.items() if kern in key)
+            for kern in KERNEL_OF.values()}
+    log(f"[{label}] launch counters {launched}; kernels in the trace "
+        f"{ {k: v for k, v in seen.items() if v} }")
+    lost = {k: (n, seen[KERNEL_OF[k]]) for k, n in launched.items()
+            if seen[KERNEL_OF[k]] < n}
+    if lost:
+        raise AssertionError(f"{label}: the trace lost launches "
+                             f"(counted, traced): {lost}")
+    return wall, busy, by_name
+
+
+def demangle(names: list) -> list:
+    """C++ names as ``c++filt`` gives them (unchanged without it)."""
+    if not names or shutil.which("c++filt") is None:
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60).stdout
+    got = out.splitlines()
+    return got if len(got) == len(names) else names
+
+
+def short(name: str) -> str:
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ")
+
+
+def ptxas_report(log_text: str) -> list:
+    """[(kernel, "registers ..., spills ...")] from an ``nvcc -Xptxas=-v``
+    log: each entry function's register count and spill line."""
+    rows, fn, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            used = line.split(":", 1)[1].strip()
+            rows.append((fn, f"{used}; {spill}"))
+            fn = None
+    names = demangle([r[0] for r in rows])
+    return [(short(n), r[1]) for n, r in zip(names, rows)]
+
+
+def sass_mma_counts(library: Path):
+    """{kernel: HMMA + HGMMA instructions in its SASS}, or None when the
+    toolkit has no ``cuobjdump``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump")
+    if tool is None and CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "cuobjdump"
+        tool = str(cand) if cand.exists() else None
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    names = demangle(list(counts))
+    return {short(n): c for n, c in zip(names, counts.values())}
 
 
 def max_abs_err(a, b) -> int:
@@ -260,12 +370,36 @@ def main() -> int:
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
     # -- 2. build -------------------------------------------------------
-    build.build_all()
+    targets = build.build_all()
     log(f"[build] {build.build_seconds:.1f} s")
     for stem, out in build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {stem}: {line.strip()}")
+        for kernel, report in ptxas_report(out):
+            log(f"[build] {stem}: {kernel}: {report}")
+    mma = sass_mma_counts(targets["flash_attention"])
+    if mma is None:
+        log("[build] flash_attention SASS: tensor-core MMA count not "
+            "checked (no cuobjdump)")
+    else:
+        for kernel, n in sorted(mma.items()):
+            log(f"[build] flash_attention SASS: {kernel}: {n} HMMA/HGMMA")
+        bf16 = {k: n for k, n in mma.items() if "bfloat16" in k}
+        if not bf16 or min(bf16.values()) == 0:
+            raise AssertionError(f"a bf16 flash attention instantiation "
+                                 f"has no tensor-core MMA: {bf16}")
+
+    # -- 2b. the card tests ---------------------------------------------
+    t0 = time.perf_counter()
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    summary = (tests.stdout.strip().splitlines() or ["no output"])[-1]
+    log(f"[card tests] tests/test_torch_cuda.py: {summary} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if tests.returncode != 0:
+        log(tests.stdout[-4000:] + tests.stderr[-2000:])
+        raise AssertionError("the card tests failed")
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -309,17 +443,19 @@ def main() -> int:
                           generator=gen)
 
     err2 = 0
-    for b in CHECK_BATCHES:
+    for b in SEGMENT_BATCHES:
         xs = layer_inputs(prepare_input_packed(images(b)).to(dev))
         for label, (s, e) in SEGMENT_SPANS.items():
-            out = segment_cuda(specs[s:e], packed[s:e])(xs[s])
+            fn = segment_cuda(specs[s:e], packed[s:e])
+            out = fn(xs[s])
             torch.cuda.synchronize()
             ref = _run_chain(specs[s:e], packed[s:e], xs[s])
             err2 = max(err2, max_abs_err(out, ref))
             if not torch.equal(out, ref):
                 raise AssertionError(f"segment_cuda {label} B={b} differs")
             log(f"[kernel 2] segment_cuda {label} [{s}:{e}] B={b}: "
-                f"torch.equal to _run_chain, out {tuple(out.shape)}")
+                f"torch.equal to _run_chain, out {tuple(out.shape)}, "
+                f"grid {fn.grid} blocks")
 
     # -- 4a. kernel 3 against its plain version -------------------------
     def randn(*shape, dtype=torch.float32, scale=1.0):
@@ -434,7 +570,8 @@ def main() -> int:
         f"{LM_BF16_REL}), argmax agreement {agree:.4f}")
     prefill = lm_steps.make_prefill_step(cfg)
     prefill(params, prompt_t)
-    wall, busy, by_name = device_trace(lambda: prefill(params, prompt_t))
+    wall, busy, by_name = traced("lm trace", lambda: prefill(params, prompt_t),
+                                 launch_counts)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     lm_idle = 1 - busy / wall
     log(f"[lm] one traced prefill B={LM_BATCH} S={LM_PROMPT}: wall "
@@ -499,7 +636,8 @@ def main() -> int:
         engine.step(force=True)       # idle: a no-op
         reqs = [engine.submit(x_req[i].numpy()) for i in range(N_REQUESTS)]
         if trace:
-            wall, busy, by_name = device_trace(lambda: engine.step(force=True))
+            wall, busy, by_name = traced(label, lambda: engine.step(force=True),
+                                         launch_counts)
         else:
             engine.step(force=True)
         got = np.stack([r.wait(timeout=600) for r in reqs])
@@ -602,10 +740,27 @@ def main() -> int:
     k2_bound, k2_by = bound(n_bytes, segment_gemm_work(specs, packed, batch))
     log(f"[time] segment_cuda whole net B={batch}: device {k2_ms:.4f} ms "
         f"({how}), per call {k2_call:.4f} ms, plain {k2_plain:.3f} ms, "
-        f"bound {k2_bound:.5f} ms ({k2_by})")
+        f"bound {k2_bound:.5f} ms ({k2_by}), grid {seg.grid} blocks")
     x1 = xs[0][:1].contiguous()
-    log(f"[time] segment_cuda whole net B=1: device "
-        f"{kernel_ms(lambda: seg(x1), 'segment_kernel', 20)[0]:.4f} ms")
+    b1_ms, how = kernel_ms(lambda: seg(x1), "segment_kernel", 20)
+    b1_call = time_ms(lambda: seg(x1), 20)
+    b1_bound, b1_by = bound(
+        4 * (x1.numel() + model.n_classes) + segment_weight_bytes(packed),
+        segment_gemm_work(specs, packed, 1))
+    log(f"[time] segment_cuda whole net B=1: device {b1_ms:.4f} ms ({how}), "
+        f"per call {b1_call:.4f} ms, bound {b1_bound:.5f} ms ({b1_by}), "
+        f"grid {seg.grid} blocks")
+    # the same layers one launch each (one op, no grid barrier): what
+    # each layer costs inside the fused launch
+    parts = []
+    for s, e in ((0, 2), (2, 5), (5, 7), (7, 10), (10, 12), (12, 15),
+                 (15, 18), (18, 19)):
+        part = segment_cuda(specs[s:e], packed[s:e])
+        parts.append((f"{s}:{e}", kernel_ms(lambda: part(xs[s]),
+                                            "segment_kernel", 20)[0]))
+    log(f"[time] segment_cuda B={batch} one layer per launch (device ms): "
+        + " ".join(f"[{k}] {v:.4f}" for k, v in parts)
+        + f"; sum {sum(v for _, v in parts):.4f}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [

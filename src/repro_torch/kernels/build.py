@@ -123,7 +123,8 @@ def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.xnor_gemm_launch.argtypes = [p, p, p] + [i] * 8 + [p]
         lib.xnor_gemm_launch.restype = i
     elif stem == "segment_fused":
-        lib.segment_fused_launch.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.segment_fused_launch.argtypes = (
+            [p] * 5 + [i] * 7 + [ctypes.POINTER(i), p])
         lib.segment_fused_launch.restype = i
     elif stem == "flash_attention":
         lib.flash_attention_launch.argtypes = (

@@ -6,10 +6,15 @@ softmax attention for ``q (B, H, Sq, D)`` and ``k, v (B, Hkv, Sk, D)``,
 Causal masking is suffix-aligned with an explicit offset: key ``j`` is
 visible to query ``i`` iff ``j <= i + kv_offset`` (``Sk - Sq`` for the
 ops entry, the caller's own offset for ``chunked_attention``).  Inputs
-are f32 or bf16, the arithmetic f32, the output in the input type.  It
-replaces the Pallas TPU kernel
+are f32 or bf16, the softmax statistics f32, the output in the input
+type.  It replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``; the kernel
-source is ``csrc/flash_attention.cu``.
+source is ``csrc/flash_attention.cu``, two kernels dispatched on dtype:
+bf16 on the tensor cores (``mma.sync``, P rounded to bf16 for the P.V
+product, f32 accumulators), f32 on scalar f32 FMAs (the tensor cores
+would round f32 operands to TF32).  bf16 operands are staged by 16-byte
+``cp.async`` copies, so their base pointers and (b, h, s) strides must
+be 16-byte aligned; the wrapper refuses others.
 
 On a CPU tensor the wrapper computes the plain version
 (:func:`flash_attention_plain`); on a CUDA tensor it launches the kernel
@@ -53,6 +58,18 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{k.shape[1]} kv heads")
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
+
+
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """Refuse bf16 operands the kernel's 16-byte copies cannot read:
+    a base pointer or a (b, h, s) stride off a 16-byte boundary."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(s * size % 16 for s in t.stride()[:3]):
+            raise ValueError(
+                f"flash_attention_cuda needs 16-byte aligned bf16 rows: "
+                f"pointer {t.data_ptr() % 16} bytes past a boundary, "
+                f"strides {tuple(t.stride())}")
 
 
 def flash_attention_plain(
@@ -126,8 +143,9 @@ def flash_attention_cuda(
     """Flash attention, q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in
     ``q.dtype``.  ``kv_offset`` defaults to ``Sk - Sq``.  Operands may be
     strided views (for example (B,S,H,D) tensors transposed to
-    (B,H,S,D)) as long as the head-dim axis is dense; the output has the
-    layout of ``q``."""
+    (B,H,S,D)) as long as the head-dim axis is dense (and, for bf16,
+    16-byte aligned: :func:`check_aligned`); the output has the layout
+    of ``q``."""
     check_operands(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -148,6 +166,8 @@ def flash_attention_cuda(
                          f"{HEAD_DIMS}, got {D}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs a dense head-dim axis")
+    if q.dtype == torch.bfloat16:
+        check_aligned(q, k, v)
     if B > 65535 or H > 65535:
         raise ValueError(f"B {B} or H {H} exceeds the grid's 65535")
     # the output in q's layout: (B,S,H,D) storage stays (B,S,H,D)

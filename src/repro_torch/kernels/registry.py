@@ -266,9 +266,9 @@ def _register_defaults(reg: VariantRegistry) -> VariantRegistry:
             placement=DEVICE,
             scope=SCOPE_SEGMENT,
             aspects=("X",),
-            description="whole device segment as one CUDA launch, one "
-            "block per example, pool/threshold/repack fused into the "
-            "GEMM epilogue",
+            description="whole device segment as one persistent "
+            "cooperative CUDA launch, the batch layer by layer over every "
+            "SM, pool/threshold/repack fused into the GEMM epilogue",
         )
     )
     return reg

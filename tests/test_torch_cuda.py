@@ -95,6 +95,48 @@ def _net(arch, dev, batch=3, scale=0.5):
     return m, packed, xs
 
 
+_FULL: dict = {}
+
+
+def _full_net(arch, dev):
+    """The full-width net at batch 33 and its plain layer outputs."""
+    if arch not in _FULL:
+        _FULL[arch] = _net(arch, dev, batch=33, scale=1.0)
+    return _FULL[arch]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16, 33])
+@pytest.mark.parametrize("span", ["whole", "tail_step", "mid_mp"])
+@pytest.mark.parametrize("arch", ["cifar10", "fashion_mnist"])
+def test_segment_cuda_full_width_equals_chain(dev, arch, span, batch):
+    """The persistent kernel at the batches the DP serves (1, 8, 16)
+    and at 33, which is no multiple of any tile."""
+    m, packed, xs = _full_net(arch, dev)
+    s, e = SPANS[arch][span]
+    fn = segment_cuda(m.specs[s:e], packed[s:e])
+    before = segment_cuda.launches
+    got = fn(xs[s][:batch].contiguous())
+    torch.cuda.synchronize()
+    assert segment_cuda.launches == before + 1
+    assert fn.grid >= 1
+    assert torch.equal(got, xs[e][:batch])
+
+
+def test_segment_cuda_refuses_an_unaligned_input(dev):
+    """A segment whose first conv reads 16 bytes at a time (C256: 8
+    words a pixel) refuses an input off a 16-byte boundary."""
+    m, packed, xs = _full_net("cifar10", dev)
+    fn = segment_cuda(m.specs[7:10], packed[7:10])
+    x = xs[7][:1]
+    base = torch.zeros(x.numel() + 1, dtype=torch.int32, device=dev)
+    before = segment_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(base[1:].view(x.shape))
+    assert segment_cuda.launches == before
+    base[1:] = x.reshape(-1)
+    assert torch.equal(fn(base[1:].view(x.shape).clone()), xs[10][:1])
+
+
 @pytest.mark.parametrize("arch", ["cifar10", "fashion_mnist"])
 @pytest.mark.parametrize("span", ["whole", "tail_step", "mid_mp"])
 def test_segment_cuda_equals_chain(dev, arch, span):
@@ -150,6 +192,70 @@ FLASH_CASES = {
     "ragged-full": (1, 4, 4, 77, 130, 64, torch.bfloat16, False),
     "sq1": (2, 14, 2, 1, 2048, 64, torch.float32, True),
 }
+
+
+# bf16 on the tensor cores, held at 2e-2: (b, h, hkv, sq, sk, d, causal,
+# kv_offset); ragged S 200 for every head dim and GQA group
+TC_CASES = {
+    **{f"d{d}-g{g}-{'causal' if c else 'full'}":
+       (2, 2 * g, 2, 200, 200, d, c, None)
+       for d in (32, 64, 128) for g in (1, 2, 7) for c in (True, False)},
+    "sq1-sk2048": (4, 14, 2, 1, 2048, 64, True, None),
+    "sq1-sk2048-d128": (1, 8, 1, 1, 2048, 128, True, None),
+    "ragged-sq-sk-full": (1, 4, 4, 77, 130, 64, False, None),
+}
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_flash_attention_bf16_tensor_cores_match_plain(dev, name):
+    b, h, hkv, sq, sk, d, causal, off = TC_CASES[name]
+    rng = np.random.default_rng(100 + sorted(TC_CASES).index(name))
+    q, k, v = (_bf16(rng, *shape).to(dev, torch.bfloat16)
+               for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, kv_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, kv_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_bf16_strided_views_with_kv_offset(dev, d):
+    """The model's (B,S,H,D) projections seen as (B,H,S,D), a positive
+    offset below Sk - Sq (later queries see fewer keys than aligned
+    prefill would give them), output in q's layout."""
+    rng = np.random.default_rng(d)
+    B, Sq, Sk, H, Hkv, off = 2, 100, 300, 14, 2, 150
+    q = _bf16(rng, B, Sq, H, d).to(dev, torch.bfloat16).transpose(1, 2)
+    k = _bf16(rng, B, Sk, Hkv, d).to(dev, torch.bfloat16).transpose(1, 2)
+    v = _bf16(rng, B, Sk, Hkv, d).to(dev, torch.bfloat16).transpose(1, 2)
+    got = flash_attention_cuda(q, k, v, causal=True, kv_offset=off)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
+    want = flash_attention_plain(q, k, v, causal=True, kv_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_attention_bf16_refuses_unaligned_operands(dev):
+    base = torch.zeros(1 * 2 * 64 * 64 + 8, dtype=torch.bfloat16, device=dev)
+    q = base[1:1 + 2 * 64 * 64].view(1, 2, 64, 64)       # 2 bytes off
+    k = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16, device=dev)
+    odd = torch.zeros((1, 1, 64, 68), dtype=torch.bfloat16,
+                      device=dev)[..., :64]              # 136-byte rows
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q.contiguous(), odd, odd)
+    assert flash_attention_cuda.launches == before
 
 
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
