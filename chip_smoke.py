@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``,
    the ``ptxas`` register / spill report of each kernel, and the count
-   of tensor-core MMA instructions (``HMMA``/``HGMMA``) in each flash
-   attention instantiation's SASS (``cuobjdump -sass``): a bf16
-   instantiation without one fails the run;
+   of tensor-core MMA instructions (``HMMA``/``HGMMA``, and the 1-bit
+   ``BMMA``/``BGMMA``) in each kernel's SASS (``cuobjdump -sass``): a bf16
+   flash attention instantiation without HMMA, or an ``xnor_gemm_kernel``
+   instantiation without BMMA, fails the run;
 2b. the card tests, ``pytest -m cuda tests/test_torch_cuda.py`` in a
    child process: each kernel against its plain version over more
    shapes than the phases below (flash attention at head dims 32/64/128,
@@ -18,8 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    alignment refusal; ``segment_cuda`` at B 1/8/16/33 on both paper
    nets and three spans); any failure fails the run;
 3. kernel 1, ``xnor_gemm_cuda``: all 7 aspect configurations at every
-   CIFAR-10 GEMM shape, B in {1, 8}, plus a ragged shape, each
-   ``torch.equal`` to the plain ``xnor_gemm_ref`` on the same inputs;
+   CIFAR-10 and Fashion-MNIST GEMM shape, B in {1, 8, 16, 33}, plus a
+   ragged shape (P, N no tile multiples, Kw = 5), on random words and on
+   all-zero and all-one words, each ``torch.equal`` to the plain
+   ``xnor_gemm_ref`` on the same inputs;
 4. kernel 2, ``segment_cuda``: the whole CIFAR-10 net, a tail span that
    starts at a step and a mid span that starts at a max-pool, B in
    {1, 8, 16, 33} (33 is no multiple of any tile), each ``torch.equal``
@@ -54,11 +57,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    on, for the card's busy and idle time while serving;
 7. kernel timings at the main-path shapes (device time per launch from
    the profiler's trace; CUDA events for the time per call and for the
-   plain versions), beside the least time the card could take.
+   plain versions), beside the least time the card could take.  Kernel
+   1 under all 7 aspect configurations at every conv/fc layer at B 16
+   and B 1; the card's 1-bit tensor-core rate measured by
+   ``xnor_mma_probe_kernel``, and each bound both ways: over that rate
+   (the bound the JSON line carries) and over the popc pipe (the bound
+   of the rows before the 1-bit product); ``torch._int_mm`` on the same
+   dot products unpacked to +-1 int8 as a yardstick only (not the same
+   function: 8x the input bytes).
 
 Every traced window (the LM prefill, the three traced serving steps)
-reads the launch counts before and after it and fails if the trace
-shows fewer launches of a kernel than its wrapper counted.
+reads the launch counts before and after it; a trace that shows fewer
+launches of a kernel than its wrapper counted is taken again, and three
+such traces fail the run.
 
 The launch counts are zeroed just before each main path and read just
 after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
@@ -85,7 +96,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 PROFILE_BATCHES = (1, 4, 16)
 N_REQUESTS = 32
-CHECK_BATCHES = (1, 8)
+CHECK_BATCHES = (1, 8, 16, 33)
 SEGMENT_BATCHES = (1, 8, 16, 33)
 # CIFAR-10 full-width GEMM shapes: (layer, P windows, N outputs, Kw, k_true)
 GEMM_SHAPES = (
@@ -94,7 +105,18 @@ GEMM_SHAPES = (
     ("L11", 64, 512, 72, 2304), ("L13", 64, 512, 144, 4608),
     ("L17", 1, 1024, 256, 8192), ("L19", 1, 10, 32, 1024),
 )
+FMNIST_GEMM_SHAPES = (
+    ("F-L1", 784, 64, 9, 9), ("F-L4", 196, 64, 18, 576),
+    ("F-L8", 1, 2048, 98, 3136), ("F-L10", 1, 10, 64, 2048),
+)
 RAGGED_SHAPE = ("ragged", 37, 21, 5, 150)   # P, N not tile multiples, Kw tail
+ASPECT_SETS = ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")
+# kernel 1's timing sweep: batches, launches per case
+SWEEP_BATCHES = (16, 1)
+SWEEP_ITERS = 20
+# a trace drops launch records made right after it starts: the traced
+# functions wait this long (seconds) inside the trace before they launch
+PROFILER_SETTLE_S = 0.02
 # (start, stop) layer spans of the CIFAR-10 net for the segment checks
 SEGMENT_SPANS = {"whole": (0, 19), "tail from step": (14, 19),
                  "mid from mp": (8, 13)}
@@ -204,6 +226,7 @@ def device_trace(fn) -> tuple:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_SETTLE_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -226,31 +249,131 @@ def device_trace(fn) -> tuple:
     return wall * 1e3, busy / 1e3, by_name, n_by_name
 
 
+def kernel_sweep(cases, kernel: str, iters: int) -> tuple:
+    """({label: device ms per launch}, launches traced) for `cases`
+    [(label, fn)]: `iters` back-to-back calls of each case under a
+    profiler trace of its own, the mean duration of the traced launches
+    of the kernel whose name contains `kernel`.  The trace drops launch
+    records (often the first ones of a trace); a trace that holds fewer
+    than half of the launches is taken again, up to three times, and the
+    fullest one is kept.  A case none of whose launches was traced fails
+    the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    res, n_traced = {}, 0
+    for label, fn in cases:
+        fn()
+        torch.cuda.synchronize()
+        best: list = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILER_SETTLE_S)
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            spans = [ev.time_range.end - ev.time_range.start
+                     for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA
+                     and kernel in ev.name]
+            if len(spans) > iters:
+                raise AssertionError(f"kernel_sweep {label}: {len(spans)} "
+                                     f"launches traced, {iters} made")
+            best = max(best, spans, key=len)
+            if 2 * len(best) >= iters:
+                break
+        if not best:
+            raise AssertionError(f"kernel_sweep {label}: no launch of "
+                                 f"{kernel} traced")
+        n_traced += len(best)
+        res[label] = sum(best) / 1e3 / len(best)
+    return res, n_traced
+
+
+def mma_b1_rate(mma_probe, dev, n_sm: int) -> tuple:
+    """(bit-products per second, ms) of ``xnor_mma_probe_kernel``: 4
+    blocks of 8 warps per SM, each warp 8 x `iters` independent
+    m16n8k256 AND/popc products; the best of 3 timed launches."""
+    import torch
+
+    iters = 512
+    out = torch.empty(4 * n_sm * 256, dtype=torch.int32, device=dev)
+    mma_probe(out, 16)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mma_probe(out, iters)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    n_mma = out.numel() // 32 * 8 * iters
+    return n_mma * 16 * 8 * 256 / (best / 1e3), best
+
+
+def unpack_pm1(words):
+    """(..., Kw) int32 words -> (..., 32 Kw) int8 of +-1, bit i of a word
+    at position i."""
+    import torch
+
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[..., None] >> shifts) & 1
+    return (2 * bits - 1).to(torch.int8).reshape(*words.shape[:-1], -1)
+
+
+def int_mm_ms(a, w, iters: int) -> float:
+    """Time per call of ``torch._int_mm`` on the +-1 int8 unpacking of
+    the xnor product's operands (rows padded to a multiple of 8 above 16,
+    neurons to a multiple of 8, as the call requires): the same dot
+    products, not the same function (8x the input bytes).  A yardstick
+    only; the port never calls it."""
+    import torch
+
+    x = unpack_pm1(a.reshape(-1, a.shape[-1]))
+    y = unpack_pm1(w)
+    m = max(24, -(-x.shape[0] // 8) * 8)
+    n = -(-y.shape[0] // 8) * 8
+    x = torch.nn.functional.pad(x, (0, 0, 0, m - x.shape[0])).contiguous()
+    y = torch.nn.functional.pad(y, (0, 0, 0, n - y.shape[0])).contiguous()
+    return time_ms(lambda: torch._int_mm(x, y.t()), iters)
+
+
 # each wrapper's CUDA kernel, as the profiler names it
 KERNEL_OF = {"xnor_gemm_cuda": "xnor_gemm_kernel",
              "segment_cuda": "segment_kernel",
              "flash_attention_cuda": "flash_attention_kernel"}
 
 
-def traced(label: str, fn, counts) -> tuple:
+def traced(label: str, fn, counts, prepare=None, attempts: int = 3) -> tuple:
     """`device_trace` of `fn`, held against the launch counters read
     around it (`counts()` -> {wrapper: launches}): every launch a wrapper
     counted must be in the trace, or the trace lost device work and its
-    busy and idle numbers are wrong."""
-    before = counts()
-    wall, busy, by_name, n_by_name = device_trace(fn)
-    after = counts()
-    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
-    seen = {kern: sum(n for key, n in n_by_name.items() if kern in key)
-            for kern in KERNEL_OF.values()}
-    log(f"[{label}] launch counters {launched}; kernels in the trace "
-        f"{ {k: v for k, v in seen.items() if v} }")
-    lost = {k: (n, seen[KERNEL_OF[k]]) for k, n in launched.items()
-            if seen[KERNEL_OF[k]] < n}
-    if lost:
-        raise AssertionError(f"{label}: the trace lost launches "
-                             f"(counted, traced): {lost}")
-    return wall, busy, by_name
+    busy and idle numbers are wrong.  The profiler drops a launch record
+    now and then, so a trace that lost one is taken again (`prepare()`
+    runs before each attempt, outside the trace); only a complete trace
+    is returned, and `attempts` lossy ones fail the run."""
+    for attempt in range(1, attempts + 1):
+        if prepare is not None:
+            prepare()
+        before = counts()
+        wall, busy, by_name, n_by_name = device_trace(fn)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] > before[k]}
+        seen = {kern: sum(n for key, n in n_by_name.items() if kern in key)
+                for kern in KERNEL_OF.values()}
+        log(f"[{label}] launch counters {launched}; kernels in the trace "
+            f"{ {k: v for k, v in seen.items() if v} }")
+        lost = {k: (n, seen[KERNEL_OF[k]]) for k, n in launched.items()
+                if seen[KERNEL_OF[k]] < n}
+        if not lost:
+            return wall, busy, by_name
+        log(f"[{label}] trace {attempt} lost launches (counted, traced): "
+            f"{lost}")
+    raise AssertionError(f"{label}: {attempts} traces lost launches")
 
 
 def demangle(names: list) -> list:
@@ -287,8 +410,9 @@ def ptxas_report(log_text: str) -> list:
 
 
 def sass_mma_counts(library: Path):
-    """{kernel: HMMA + HGMMA instructions in its SASS}, or None when the
-    toolkit has no ``cuobjdump``."""
+    """{kernel: tensor-core MMA instructions in its SASS (HMMA, HGMMA and
+    the 1-bit BMMA, BGMMA)}, or None when the toolkit has no
+    ``cuobjdump``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = shutil.which("cuobjdump")
@@ -305,7 +429,7 @@ def sass_mma_counts(library: Path):
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+        elif fn is not None and re.search(r"\b[HB]G?MMA\b", line):
             counts[fn] += 1
     names = demangle(list(counts))
     return {short(n): c for n, c in zip(names, counts.values())}
@@ -342,6 +466,7 @@ def main() -> int:
         build, flash_attention_cuda, launch_counts, reset_launch_counts,
         segment_cuda, xnor_gemm_cuda,
     )
+    from repro_torch.kernels.xnor_popcount import mma_probe
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models import modules as lm_modules
     from repro_torch.models import steps as lm_steps
@@ -364,7 +489,7 @@ def main() -> int:
         f"max SM clock {max_clock_hz / 1e6:.0f} MHz, "
         f"popc peak {popc_per_s:.4g}/s")
 
-    def bound(n_bytes: float, word_ops: float) -> tuple:
+    def bound_popc(n_bytes: float, word_ops: float) -> tuple:
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = word_ops / popc_per_s * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -386,6 +511,17 @@ def main() -> int:
         if not bf16 or min(bf16.values()) == 0:
             raise AssertionError(f"a bf16 flash attention instantiation "
                                  f"has no tensor-core MMA: {bf16}")
+    bmma = sass_mma_counts(targets["xnor_gemm"])
+    if bmma is None:
+        log("[build] xnor_gemm SASS: 1-bit MMA count not checked (no "
+            "cuobjdump)")
+    else:
+        for kernel, n in sorted(bmma.items()):
+            log(f"[build] xnor_gemm SASS: {kernel}: {n} BMMA/BGMMA")
+        gemm = {k: n for k, n in bmma.items() if "xnor_gemm_kernel" in k}
+        if not gemm or min(gemm.values()) == 0:
+            raise AssertionError(f"an xnor_gemm_kernel instantiation has no "
+                                 f"1-bit tensor-core MMA: {gemm}")
 
     # -- 2b. the card tests ---------------------------------------------
     t0 = time.perf_counter()
@@ -403,28 +539,37 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
 
-    def words(*shape):
+    def words(*shape, kind="random"):
+        if kind == "zeros":
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+        if kind == "ones":
+            return torch.full(shape, -1, dtype=torch.int32, device=dev)
         return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
                              dtype=torch.int32).to(dev)
 
     # -- 3. kernel 1 against its plain version ---------------------------
     err1 = 0
     n_checks = 0
-    for b in CHECK_BATCHES:
-        for name, p, n, kw, k_true in GEMM_SHAPES + (RAGGED_SHAPE,):
-            a, w = words(b, p, kw), words(n, kw)
-            ref = xnor_gemm_ref(a, w, k_true)
-            for asp in ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ"):
-                out = xnor_gemm_cuda(a, w, k_true, tuple(asp))
-                torch.cuda.synchronize()
-                err1 = max(err1, max_abs_err(out, ref))
-                if not torch.equal(out, ref):
-                    raise AssertionError(
-                        f"xnor_gemm_cuda {asp} B={b} {name} differs")
-                n_checks += 1
+    shapes = GEMM_SHAPES + FMNIST_GEMM_SHAPES + (RAGGED_SHAPE,)
+    cases = [(b, shape, "random") for b in CHECK_BATCHES for shape in shapes]
+    cases += [(b, shape, kind) for kind in ("zeros", "ones")
+              for b in (1, 33) for shape in (GEMM_SHAPES[0], GEMM_SHAPES[6],
+                                             RAGGED_SHAPE)]
+    for b, (name, p, n, kw, k_true), kind in cases:
+        a, w = words(b, p, kw, kind=kind), words(n, kw, kind=kind)
+        ref = xnor_gemm_ref(a, w, k_true)
+        for asp in ASPECT_SETS:
+            out = xnor_gemm_cuda(a, w, k_true, tuple(asp))
+            torch.cuda.synchronize()
+            err1 = max(err1, max_abs_err(out, ref))
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"xnor_gemm_cuda {asp} B={b} {name} {kind} differs")
+            n_checks += 1
     log(f"[kernel 1] xnor_gemm_cuda: {n_checks} checks torch.equal to "
-        f"xnor_gemm_ref (7 aspects x {len(GEMM_SHAPES) + 1} shapes x "
-        f"B in {CHECK_BATCHES}), max_abs_err {err1}")
+        f"xnor_gemm_ref (7 aspects x {len(shapes)} shapes x B in "
+        f"{CHECK_BATCHES} on random words, and all-zero / all-one words "
+        f"at 3 shapes x B in (1, 33)), max_abs_err {err1}")
 
     # -- 4. kernel 2 against its plain version ---------------------------
     model = build_model("cifar10")
@@ -634,15 +779,23 @@ def main() -> int:
         engine = ServingEngine(model, packed, config,
                                allowed_batch_sizes=batch_sizes, device=dev)
         engine.step(force=True)       # idle: a no-op
-        reqs = [engine.submit(x_req[i].numpy()) for i in range(N_REQUESTS)]
+        bursts = []
+
+        def submit():
+            bursts.append([engine.submit(x_req[i].numpy())
+                           for i in range(N_REQUESTS)])
+
         if trace:
             wall, busy, by_name = traced(label, lambda: engine.step(force=True),
-                                         launch_counts)
+                                         launch_counts, prepare=submit)
         else:
+            submit()
             engine.step(force=True)
-        got = np.stack([r.wait(timeout=600) for r in reqs])
-        if got.shape != expected.shape or not np.array_equal(got, expected):
-            raise AssertionError(f"{label}: served answers differ")
+        for reqs in bursts:
+            got = np.stack([r.wait(timeout=600) for r in reqs])
+            if got.shape != expected.shape or not np.array_equal(got,
+                                                                 expected):
+                raise AssertionError(f"{label}: served answers differ")
         if trace:
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
             log(f"[{label}] one step of {N_REQUESTS} requests under the "
@@ -697,59 +850,114 @@ def main() -> int:
         serve(label, cfg, table.batch_sizes, trace=True)
 
     # -- 7. timings at the main-path shapes ------------------------------
-    xs = layer_inputs(prepare_input_packed(images(batch)).to(dev))
-    rows = []
-    for i, spec in enumerate(specs):
-        if spec.kind not in ("conv", "fc"):
-            continue
-        x = xs[i]
-        a = (extract_patch_words(x).reshape(batch, spec.in_shape[0]
-             * spec.in_shape[1], -1) if spec.kind == "conv" else x[:, None, :])
-        a = a.contiguous()
-        w, k_true = packed[i]["w_words"], packed[i]["k_true"]
-        n, kw = w.shape
-        work = a.shape[0] * a.shape[1] * n * kw
-        n_bytes = 4 * (a.numel() + w.numel() + a.shape[0] * a.shape[1] * n)
-        ms, how = kernel_ms(lambda: xnor_gemm_cuda(a, w, k_true),
-                            "xnor_gemm_kernel", 50)
-        call = time_ms(lambda: xnor_gemm_cuda(a, w, k_true), 50)
-        plain = time_ms(lambda: xnor_gemm_ref(a, w, k_true), 3)
-        b_ms, b_by = bound(n_bytes, work)
-        rows.append((ms, plain, n_bytes, work))
-        log(f"[time] xnor_gemm_cuda XYZ L{spec.idx} B={batch} "
-            f"P={a.shape[1]} N={n} Kw={kw}: device {ms:.5f} ms ({how}), "
-            f"per call {call:.5f} ms, plain {plain:.3f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by})")
-        if spec.idx == 8:
-            per_cfg = {asp: kernel_ms(
-                lambda asp=asp: xnor_gemm_cuda(a, w, k_true, tuple(asp)),
-                "xnor_gemm_kernel", 20)[0] for asp in
-                ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")}
-            log(f"[time] xnor_gemm_cuda L8 B={batch} device ms by aspect "
-                "config: " + " ".join(f"{k}={v:.5f}" for k, v in
-                                      per_cfg.items()))
-    k1_ms, k1_plain = sum(r[0] for r in rows), sum(r[1] for r in rows)
-    k1_bound, k1_by = bound(sum(r[2] for r in rows), sum(r[3] for r in rows))
+    b1_rate, probe_ms = mma_b1_rate(mma_probe, dev, n_sm)
+    log(f"[time] xnor_mma_probe_kernel: {b1_rate:.4g} bit-products/s "
+        f"(m16n8k256 AND/popc on register fragments, {4 * n_sm} blocks of "
+        f"8 warps, {probe_ms:.3f} ms), {b1_rate / n_sm / max_clock_hz:.0f} "
+        f"bit-products per SM per clock at the max SM clock")
 
+    def bound_b1(n_bytes: float, word_ops: float) -> tuple:
+        """The least time: bytes over HBM, or the 1-bit product (32
+        bit-products a word-op) over the measured tensor-core rate."""
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 32 * word_ops / b1_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def gemm_layers(b):
+        """[(label, a, w, k_true)] of every conv/fc layer on the main
+        path's inputs at batch `b` (conv as patches x weights)."""
+        xs_b = layer_inputs(prepare_input_packed(images(b)).to(dev))
+        out = []
+        for i, spec in enumerate(specs):
+            if spec.kind not in ("conv", "fc"):
+                continue
+            x = xs_b[i]
+            a = (extract_patch_words(x).reshape(b, spec.in_shape[0]
+                 * spec.in_shape[1], -1) if spec.kind == "conv"
+                 else x[:, None, :])
+            out.append((f"L{spec.idx}", a.contiguous(), packed[i]["w_words"],
+                        packed[i]["k_true"]))
+        return out
+
+    sweep, per_layer = [], {}
+    for b in SWEEP_BATCHES:
+        per_layer[b] = gemm_layers(b)
+        for name, a, w, k_true in per_layer[b]:
+            for asp in ASPECT_SETS:
+                sweep.append((f"{name} B{b} {asp}",
+                              lambda a=a, w=w, k=k_true, asp=asp:
+                              xnor_gemm_cuda(a, w, k, tuple(asp))))
+    sweep_dev, n_traced = kernel_sweep(sweep, "xnor_gemm_kernel",
+                                       SWEEP_ITERS)
+    log(f"[time] xnor_gemm_cuda sweep: {len(sweep)} cases x {SWEEP_ITERS} "
+        f"launches, {n_traced} traced")
+    sweep_call = {label: time_ms(fn, SWEEP_ITERS) for label, fn in sweep}
+    rows = []
+    k1_b = SWEEP_BATCHES[0]
+    for b in SWEEP_BATCHES:
+        for name, a, w, k_true in per_layer[b]:
+            n, kw = w.shape
+            work = a.shape[0] * a.shape[1] * n * kw
+            n_bytes = 4 * (a.numel() + w.numel() + a.shape[0] * a.shape[1] * n)
+            b_ms, b_by = bound_b1(n_bytes, work)
+            p_ms, p_by = bound_popc(n_bytes, work)
+            log(f"[time] xnor_gemm_cuda {name} B={b} P={a.shape[1]} N={n} "
+                f"Kw={kw}: device ms per launch / per call: " + " ".join(
+                    f"{asp}={sweep_dev[f'{name} B{b} {asp}']:.5f}/"
+                    f"{sweep_call[f'{name} B{b} {asp}']:.5f}"
+                    for asp in ASPECT_SETS)
+                + f"; bound {b_ms:.4g} ms ({b_by}; 1-bit MMA rate), popc-pipe "
+                f"bound {p_ms:.4g} ms ({p_by})")
+            if b == k1_b:
+                plain = time_ms(lambda: xnor_gemm_ref(a, w, k_true), 3)
+                lib = int_mm_ms(a, w, SWEEP_ITERS)
+                rows.append((sweep_dev[f"{name} B{b} XYZ"], plain, n_bytes,
+                             work, lib))
+                log(f"[time] xnor_gemm_cuda {name} B={b} XYZ: plain "
+                    f"{plain:.3f} ms; yardstick torch._int_mm on the +-1 int8 "
+                    f"unpacking (not the same function, 8x the input bytes) "
+                    f"{lib:.5f} ms per call")
+    for b in SWEEP_BATCHES:
+        sums = {asp: sum(sweep_dev[f"{name} B{b} {asp}"]
+                         for name, *_ in per_layer[b]) for asp in ASPECT_SETS}
+        log(f"[time] xnor_gemm_cuda B={b} device ms summed over the "
+            f"{len(per_layer[b])} layers: " + " ".join(
+                f"{k}={v:.5f}" for k, v in sums.items()))
+    k1_ms, k1_plain = sum(r[0] for r in rows), sum(r[1] for r in rows)
+    k1_bytes, k1_work = sum(r[2] for r in rows), sum(r[3] for r in rows)
+    k1_bound, k1_by = bound_b1(k1_bytes, k1_work)
+    k1_popc, _ = bound_popc(k1_bytes, k1_work)
+    log(f"[time] xnor_gemm_cuda XYZ B={k1_b}, {len(rows)} layers: device "
+        f"{k1_ms:.5f} ms summed, plain {k1_plain:.3f} ms, bound "
+        f"{k1_bound:.5f} ms ({k1_by}: {k1_bytes / 1e6:.2f} MB, "
+        f"{32 * k1_work:.4g} bit-products), popc-pipe bound {k1_popc:.5f} ms; "
+        f"yardstick torch._int_mm {sum(r[4] for r in rows):.5f} ms summed")
+
+    xs = layer_inputs(prepare_input_packed(images(batch)).to(dev))
     seg = segment_cuda(specs, packed)
     k2_ms, how = kernel_ms(lambda: seg(xs[0]), "segment_kernel", 20)
     k2_call = time_ms(lambda: seg(xs[0]), 20)
     k2_plain = time_ms(lambda: _run_chain(specs, packed, xs[0]), 3)
     n_bytes = 4 * (xs[0].numel() + xs[-1].numel()) + segment_weight_bytes(
         packed)
-    k2_bound, k2_by = bound(n_bytes, segment_gemm_work(specs, packed, batch))
+    k2_work = segment_gemm_work(specs, packed, batch)
+    k2_bound, k2_by = bound_b1(n_bytes, k2_work)
+    k2_popc, _ = bound_popc(n_bytes, k2_work)
     log(f"[time] segment_cuda whole net B={batch}: device {k2_ms:.4f} ms "
         f"({how}), per call {k2_call:.4f} ms, plain {k2_plain:.3f} ms, "
-        f"bound {k2_bound:.5f} ms ({k2_by}), grid {seg.grid} blocks")
+        f"bound {k2_bound:.5f} ms ({k2_by}; 1-bit MMA rate), popc-pipe "
+        f"bound {k2_popc:.5f} ms, grid {seg.grid} blocks")
     x1 = xs[0][:1].contiguous()
     b1_ms, how = kernel_ms(lambda: seg(x1), "segment_kernel", 20)
     b1_call = time_ms(lambda: seg(x1), 20)
-    b1_bound, b1_by = bound(
-        4 * (x1.numel() + model.n_classes) + segment_weight_bytes(packed),
-        segment_gemm_work(specs, packed, 1))
+    b1_bytes = 4 * (x1.numel() + model.n_classes) + segment_weight_bytes(
+        packed)
+    b1_bound, b1_by = bound_b1(b1_bytes, segment_gemm_work(specs, packed, 1))
+    b1_popc, _ = bound_popc(b1_bytes, segment_gemm_work(specs, packed, 1))
     log(f"[time] segment_cuda whole net B=1: device {b1_ms:.4f} ms ({how}), "
-        f"per call {b1_call:.4f} ms, bound {b1_bound:.5f} ms ({b1_by}), "
-        f"grid {seg.grid} blocks")
+        f"per call {b1_call:.4f} ms, bound {b1_bound:.5f} ms ({b1_by}; 1-bit "
+        f"MMA rate), popc-pipe bound {b1_popc:.5f} ms, grid {seg.grid} "
+        f"blocks")
     # the same layers one launch each (one op, no grid barrier): what
     # each layer costs inside the fused launch
     parts = []

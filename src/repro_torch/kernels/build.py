@@ -108,7 +108,10 @@ def build_all() -> dict:
 
 def load_library(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu`` (building every
-    kernel on first use)."""
+    kernel on first use; no lock once it is loaded)."""
+    lib = _libs.get(stem)
+    if lib is not None:
+        return lib
     with _lock:
         if stem not in _libs:
             targets = build_all()
@@ -120,8 +123,10 @@ def load_library(stem: str) -> ctypes.CDLL:
 def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     if stem == "xnor_gemm":
-        lib.xnor_gemm_launch.argtypes = [p, p, p] + [i] * 8 + [p]
+        lib.xnor_gemm_launch.argtypes = [p, p, p] + [i] * 10 + [p]
         lib.xnor_gemm_launch.restype = i
+        lib.xnor_mma_probe_launch.argtypes = [p, i, i, p]
+        lib.xnor_mma_probe_launch.restype = i
     elif stem == "segment_fused":
         lib.segment_fused_launch.argtypes = (
             [p] * 5 + [i] * 7 + [ctypes.POINTER(i), p])

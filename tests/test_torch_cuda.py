@@ -56,20 +56,63 @@ def _words(rng, *shape):
     return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
 
 
+# (B, P, N, Kw, words): ragged P and N, Kw not a multiple of 4 or 8, both
+# FC tile kinds (16 images fill one MMA row tile, 33 do not), every
+# Fashion-MNIST GEMM shape, and all-zero / all-one words
+XNOR_CASES = (
+    (2, 37, 21, 5, "random"), (1, 1024, 64, 9, "random"),
+    (4, 64, 512, 144, "random"), (3, 1, 10, 32, "random"),
+    (2, 100, 70, 33, "random"),
+    (16, 64, 512, 72, "random"), (33, 64, 512, 72, "random"),
+    (16, 1, 1024, 256, "random"), (33, 1, 1024, 256, "random"),
+    (16, 784, 64, 9, "random"), (3, 196, 64, 18, "random"),
+    (16, 1, 2048, 98, "random"), (33, 1, 10, 64, "random"),
+    (2, 19, 40, 7, "random"), (2, 19, 40, 8, "random"),
+    (2, 19, 40, 255, "random"), (2, 19, 40, 257, "random"),
+    (3, 37, 21, 9, "zeros"), (3, 37, 21, 9, "ones"),
+    (16, 1, 24, 257, "ones"), (2, 70, 16, 8, "zeros"),
+)
+
+
+def _case_words(rng, kind, *shape):
+    if kind == "zeros":
+        return np.zeros(shape, np.int32)
+    if kind == "ones":
+        return np.full(shape, -1, np.int32)
+    return _words(rng, *shape)
+
+
 @pytest.mark.parametrize("aspects", ASPECTS)
 @pytest.mark.parametrize("tiles", [(64, 64), (16, 32), (48, 16)])
 def test_xnor_gemm_cuda_equals_plain(dev, aspects, tiles):
     rng = np.random.default_rng(11)
-    for b, p, n, kw in ((2, 37, 21, 5), (1, 1024, 64, 9), (4, 64, 512, 144),
-                        (3, 1, 10, 32), (2, 100, 70, 33)):
-        a = torch.from_numpy(_words(rng, b, p, kw)).to(dev)
-        w = torch.from_numpy(_words(rng, n, kw)).to(dev)
+    for b, p, n, kw, kind in XNOR_CASES:
+        a = torch.from_numpy(_case_words(rng, kind, b, p, kw)).to(dev)
+        w = torch.from_numpy(_case_words(rng, kind, n, kw)).to(dev)
         before = xnor_gemm_cuda.launches
         got = xnor_gemm_cuda(a, w, 32 * kw - 3, tuple(aspects),
                              p_blk=tiles[0], n_blk=tiles[1])
         torch.cuda.synchronize()
         assert xnor_gemm_cuda.launches == before + 1
         assert torch.equal(got, xnor_gemm_ref(a, w, 32 * kw - 3))
+
+
+@pytest.mark.parametrize("kw", [8, 72, 256])
+def test_xnor_gemm_cuda_unaligned_operands_take_4_byte_copies(dev, kw):
+    """Operands one word off a 16-byte boundary: the plan falls back to
+    4-byte copies, with the same result."""
+    rng = np.random.default_rng(kw)
+    a = torch.from_numpy(_words(rng, 3, 50, kw)).to(dev)
+    w = torch.from_numpy(_words(rng, 40, kw)).to(dev)
+    a_off = torch.empty(a.numel() + 1, dtype=torch.int32, device=dev)
+    a_off[1:] = a.reshape(-1)
+    w_off = torch.empty(w.numel() + 1, dtype=torch.int32, device=dev)
+    w_off[1:] = w.reshape(-1)
+    a1, w1 = a_off[1:].view(a.shape), w_off[1:].view(w.shape)
+    want = xnor_gemm_ref(a, w, 32 * kw)
+    for aspects in ASPECTS:
+        assert torch.equal(xnor_gemm_cuda(a1, w1, 32 * kw, tuple(aspects)),
+                           want)
 
 
 def test_xnor_gemm_cuda_refuses_what_it_cannot_launch(dev):
