@@ -46,10 +46,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
    (timed here only; the port never calls it);
 5. main path at full width: random fp weights from NumPy seed 0 ->
-   ``pack_params`` -> measured ``profile_bnn_model`` -> DP mapping ->
-   ``fuse_mapping`` with ``seg_cuda`` -> a ``ServingEngine`` answering
-   32 single-example requests, every answer equal to the plain CPU
-   ``forward_packed``;
+   ``pack_params`` -> measured ``profile_bnn_model`` (through a fresh
+   ``ProfileStore("dir://...").get_or_profile``, which saves it) -> DP
+   mapping -> ``fuse_mapping`` with ``seg_cuda`` -> a ``ServingEngine``
+   answering 32 single-example requests, every answer equal to the plain
+   CPU ``forward_packed``;
 6. the same traffic served under two forced mappings: all layers
    ``XYZ`` with ``seg_cuda`` over the whole net, and the mixed split
    (conv/fc on the card, elementwise layers on the host); then the same
@@ -64,7 +65,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the bound the JSON line carries) and over the popc pipe (the bound
    of the rows before the 1-bit product); ``torch._int_mm`` on the same
    dot products unpacked to +-1 int8 as a yardstick only (not the same
-   function: 8x the input bytes).
+   function: 8x the input bytes);
+8. the profile store: a second ``ProfileStore`` on the same root warm
+   starts (``get_or_profile`` with a profiler that raises if called
+   must return the stored table, equal to phase 5's), its time beside
+   phase 5's profile; the DP mapping saved and loaded back;
+9. adaptive serving: a ``ServingEngine`` under the DP mapping with
+   ``SegmentTelemetry`` and a ``RemapController`` (persisting to the
+   store; its detector needs 3 samples, so 5 quiet steps cover a whole
+   detection window) serves bursts of 16 requests through ``ctl.step``.
+   Calibrate: until no journal entry for 5 steps (at most 60); every
+   ``SwapRecord``, and the settled state, is printed with each
+   segment's observed p50 against its predicted time (the card's
+   per-segment pipeline times).  Contend: through the
+   engine's ``_build_pipeline`` seam every device segment first
+   busy-waits 10x its calibrated time; a record naming a device segment
+   must follow within 20 steps, with ``new_expected_s <=
+   old_expected_s``.  Every answer equals the plain CPU
+   ``forward_packed``, ``segment_cuda`` must have launched, and a fresh
+   store warm-starts the last remapped mapping.  Then the step wall p50
+   with telemetry on and off (telemetry's cost on the card);
+10. the cache service over a write-back tiered store (memory front, dir
+   back): a prewarm job finds the key warm (no profiling, no mapping),
+   an explore job re-measures the rows phase 9's traffic never verified
+   per layer, timing each layer's ``layer_fn`` with CUDA events on the
+   card (``xnor_gemm_cuda`` must launch), and a flush job pushes the
+   dirty keys to the back tier.
 
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
@@ -73,9 +99,10 @@ such traces fail the run.
 
 The launch counts are zeroed just before each main path and read just
 after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
-launch once per layer of the prefill, 24 times) and phases 5-6 up to
+launch once per layer of the prefill, 24 times), phases 5-6 up to
 phase 6's untraced serving (both BNN kernels must have launched while
-serving).  The last
+serving), phase 9's adaptive serving (``segment_cuda``) and phase 10's
+explore job (``xnor_gemm_cuda``).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -89,6 +116,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -117,6 +145,10 @@ SWEEP_ITERS = 20
 # a trace drops launch records made right after it starts: the traced
 # functions wait this long (seconds) inside the trace before they launch
 PROFILER_SETTLE_S = 0.02
+# ... and a traced serving window first launches this many tiny spin
+# kernels (``torch.cuda._sleep``), which take the dropped records' place
+# and are left out of every sum
+TRACE_PRIMERS = 8
 # (start, stop) layer spans of the CIFAR-10 net for the segment checks
 SEGMENT_SPANS = {"whole": (0, 19), "tail from step": (14, 19),
                  "mid from mp": (8, 13)}
@@ -153,6 +185,16 @@ FLASH_CASES = tuple(
     ("Sq 1 / Sk 2048", 4, 14, 2, 1, 2048, 64, "bfloat16", True),
     ("Sq 1 / Sk 2048 f32", 4, 14, 2, 1, 2048, 64, "float32", True),
 )
+# adaptive serving (phase 9): requests per burst, calibration stops after
+# this many steps without a new journal entry (at most CALIBRATE_MAX
+# steps), the contended remap must follow within CONTEND_MAX steps, the
+# busy-wait tax is this many times a device segment's calibrated time,
+# and the telemetry cost is the p50 over this many steps each way
+ADAPT_BURST = 16
+CALIBRATE_QUIET, CALIBRATE_MAX = 5, 60
+CONTEND_MAX = 20
+TAX_FACTOR = 10.0
+TELEMETRY_STEPS = 20
 # Published H100 SXM dense bf16 tensor-core rate (data sheet)
 BF16_FLOP_PER_S = 989e12
 # Published H100 SXM rates: HBM3 bandwidth (data sheet) and POPC issue
@@ -219,7 +261,8 @@ def kernel_ms(fn, kernel: str, iters: int) -> tuple:
 def device_trace(fn) -> tuple:
     """(wall ms, device-busy ms, {device activity: ms}, {device activity:
     count}) of one call of `fn` under the profiler: busy is the union of
-    the intervals in which a kernel or a copy ran on the card."""
+    the intervals in which a kernel or a copy ran on the card.  The
+    primer spin kernels launched before `fn` are not counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -227,13 +270,16 @@ def device_trace(fn) -> tuple:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_SETTLE_S)
+        for _ in range(TRACE_PRIMERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name, n_by_name = [], {}, {}
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or "spin_kernel" in ev.name:
             continue
         s, e = ev.time_range.start, ev.time_range.end
         spans.append((s, e))
@@ -435,6 +481,14 @@ def sass_mma_counts(library: Path):
     return {short(n): c for n, c in zip(names, counts.values())}
 
 
+def busy_wait(seconds: float) -> None:
+    """Burn the host thread for `seconds` (a co-tenant that does not
+    yield, unlike a sleep)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        pass
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
@@ -476,6 +530,15 @@ def main() -> int:
         _run_chain, segment_gemm_work, segment_weight_bytes,
     )
     from repro_torch.serving import ServingEngine, canonical_mixed_mapping
+    from repro_torch.adapt import DriftDetector, RemapController, SegmentTelemetry
+    from repro_torch.cachesvc import (
+        CacheService, LocalDirBackend, MemoryBackend, TieredBackend,
+        execution_counts,
+    )
+    from repro_torch.core.parallel_config import is_host_config
+    from repro_torch.core.profiler import layer_fn
+    from repro_torch.kernels import DEFAULT_REGISTRY
+    from repro_torch.store import ProfileStore
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -813,11 +876,21 @@ def main() -> int:
         return used
 
     reset_launch_counts()
+    store_root = Path(tempfile.mkdtemp(prefix="chip_smoke_store_"))
+    store = ProfileStore(f"dir://{store_root}", device=dev)
+
+    def measured_profile(m, p, *, batch_sizes):
+        return profile_bnn_model(m, p, batch_sizes=batch_sizes, device=dev)
+
     t0 = time.perf_counter()
-    table = profile_bnn_model(model, packed, batch_sizes=PROFILE_BATCHES,
-                              device=dev)
-    log(f"[main] profile_bnn_model {PROFILE_BATCHES}: "
-        f"{time.perf_counter() - t0:.1f} s")
+    table, loaded = store.get_or_profile(model, packed, measured_profile,
+                                         batch_sizes=PROFILE_BATCHES)
+    profile_s = time.perf_counter() - t0
+    if loaded:
+        raise AssertionError("a fresh profile store held a profile")
+    profiled_json = table.to_json()
+    log(f"[main] profile_bnn_model {PROFILE_BATCHES} through "
+        f"ProfileStore.get_or_profile (saved): {profile_s:.1f} s")
     config = map_efficient_configuration(table, policy="dp")
     config = fuse_mapping(model, packed, table, config, device=dev)
     log(f"[main] DP mapping at batch {config.proper_batch_size}, "
@@ -969,6 +1042,266 @@ def main() -> int:
     log(f"[time] segment_cuda B={batch} one layer per launch (device ms): "
         + " ".join(f"[{k}] {v:.4f}" for k, v in parts)
         + f"; sum {sum(v for _, v in parts):.4f}")
+    # -- 8. the profile store: warm start ---------------------------------
+    t_phase = time.perf_counter()
+    def no_profiling(*args, **kwargs):
+        raise AssertionError("a warm start called the profiler")
+
+    t0 = time.perf_counter()
+    warm_table, loaded = ProfileStore(
+        f"dir://{store_root}", device=dev).get_or_profile(
+            model, packed, no_profiling, batch_sizes=PROFILE_BATCHES)
+    warm_s = time.perf_counter() - t0
+    if not loaded or json.loads(warm_table.to_json()) != json.loads(
+            profiled_json):
+        raise AssertionError("the warm start did not return the stored "
+                             "profile")
+    store.save_mapping(config)
+    got = ProfileStore(f"dir://{store_root}", device=dev).load_mapping(
+        model, policy="dp", batch=batch)
+    if got is None or got.layer_configs != config.layer_configs or (
+            got.fused_segments != config.fused_segments):
+        raise AssertionError("the DP mapping did not round-trip the store")
+    log(f"[store] warm start from {store.backend.uri()} (fingerprint "
+        f"{store.fingerprint}): {warm_s * 1e3:.3f} ms, zero profiling, "
+        f"table equal to phase 5's; phase 5's measured profile took "
+        f"{profile_s:.3f} s; the DP mapping saved and loaded back "
+        f"({len(store.entries())} entries)")
+
+    log(f"[store] phase 8: {time.perf_counter() - t_phase:.2f} s")
+
+    # -- 9. adaptive serving: telemetry -> drift -> remap -> hot swap -----
+    t_phase = time.perf_counter()
+    class ContendedEngine(ServingEngine):
+        """A ServingEngine whose every pipeline (hot-swapped ones too)
+        runs each device segment after a busy-wait of ``tax_s``."""
+
+        tax_s = 0.0
+
+        def _build_pipeline(self, config):
+            pipe = super()._build_pipeline(config)
+
+            def taxed(fn):
+                def run(x):
+                    busy_wait(self.tax_s)
+                    return fn(x)
+                return run
+
+            pipe.segment_fns = [(seg, taxed(fn) if seg.on_device else fn)
+                                for seg, fn in pipe.segment_fns]
+            return pipe
+
+    def serve_burst(engine, step, i):
+        """One step of ADAPT_BURST requests; (wall s, config served)."""
+        lo = (i * ADAPT_BURST) % N_REQUESTS
+        reqs = [engine.submit(x_req[lo + j].numpy())
+                for j in range(ADAPT_BURST)]
+        served = engine.config
+        t0 = time.perf_counter()
+        step(force=True)
+        wall = time.perf_counter() - t0
+        got = np.stack([r.wait(timeout=600) for r in reqs])
+        if not np.array_equal(got, expected[lo:lo + ADAPT_BURST]):
+            raise AssertionError(f"adaptive step {i}: served answers differ")
+        return wall, served
+
+    def segment_times(label, served, snapshot, reports=()):
+        """Each segment's observed p50 against its predicted time."""
+        pred = served.segment_expected_times()
+        floor = {r.segment_index: r for r in reports}
+        for i, seg in enumerate(served.segments()):
+            snap = snapshot.get(i)
+            if snap is None:
+                continue
+            r = floor.get(i)
+            log(f"[adapt]   {label}: segment {i} [{seg.start}:{seg.stop}] "
+                f"({seg.placement}) observed p50 {snap['p50_s'] * 1e6:.3f} "
+                f"us/example over {snap['count']} steps, predicted "
+                f"{pred[i] * 1e6:.3f}, ratio {snap['p50_s'] / pred[i]:.3f}"
+                + ("" if r is None else f"; drifted: recent floor "
+                   f"{r.observed_s * 1e6:.3f}, ratio {r.ratio:.3f}"))
+
+    def show(rec, served):
+        segment_times(f"step {rec.at_step}", served, rec.telemetry,
+                      rec.reports)
+        log(f"[adapt]   -> changed {rec.changed}, expected "
+            f"{rec.old_expected_s * 1e6:.3f} -> {rec.new_expected_s * 1e6:.3f}"
+            f" us/example on the corrected table; new mapping "
+            + " ".join(rec.new_configs))
+
+    reset_launch_counts()
+    tel = SegmentTelemetry()
+    engine = ContendedEngine(model, packed, config,
+                             allowed_batch_sizes=table.batch_sizes,
+                             device=dev, telemetry=tel)
+    ctl = RemapController(engine, table, store=store,
+                          detector=DriftDetector(min_samples=3))
+    counts: dict = {}
+    n_steps = quiet = 0
+    while quiet < CALIBRATE_QUIET and n_steps < CALIBRATE_MAX:
+        before = len(ctl.journal)
+        _, served = serve_burst(engine, ctl.step, n_steps)
+        execution_counts(served, 1, into=counts)
+        n_steps += 1
+        quiet = 0 if len(ctl.journal) > before else quiet + 1
+        for rec in ctl.journal[before:]:
+            show(rec, served)
+    calibrated = len(ctl.journal)
+    log(f"[adapt] calibrate: {n_steps} steps of {ADAPT_BURST} requests, "
+        f"{calibrated} remaps, "
+        + ("settled" if quiet >= CALIBRATE_QUIET else "not settled")
+        + f"; serving " + " ".join(engine.config.layer_configs)
+        + f" fused {[f[:3] for f in engine.config.fused_segments]}")
+    segment_times("calibrated", engine.config, tel.snapshot())
+    pred = engine.config.segment_expected_times()
+    stats = tel.stats()
+    per_run = [max(stats[i].ewma if i in stats else 0.0, pred[i]) * batch
+               for i, seg in enumerate(engine.config.segments())
+               if seg.on_device]
+    if not per_run:
+        raise AssertionError("the calibrated mapping has no device segment")
+    engine.tax_s = TAX_FACTOR * max(per_run)
+    log(f"[adapt] contend: every device segment busy-waits "
+        f"{engine.tax_s * 1e3:.3f} ms first ({TAX_FACTOR:g}x the largest "
+        f"calibrated device segment, {max(per_run) * 1e3:.3f} ms a run)")
+    contended = None
+    for k in range(CONTEND_MAX):
+        before = len(ctl.journal)
+        _, served = serve_burst(engine, ctl.step, n_steps)
+        execution_counts(served, 1, into=counts)
+        n_steps += 1
+        for rec in ctl.journal[before:]:
+            show(rec, served)
+            if contended is None and any(r.placement == "device"
+                                         for r in rec.reports):
+                contended = (k + 1, rec)
+        if contended is not None:
+            break
+    if contended is None:
+        raise AssertionError(f"no remap named a device segment within "
+                             f"{CONTEND_MAX} contended steps")
+    k, rec = contended
+    if rec.new_expected_s > rec.old_expected_s * (1 + 1e-9):
+        raise AssertionError(f"remap priced worse: {rec.new_expected_s} > "
+                             f"{rec.old_expected_s}")
+    engine.tax_s = 0.0
+    for _ in range(2):                         # served after the swap
+        _, served = serve_burst(engine, ctl.step, n_steps)
+        execution_counts(served, 1, into=counts)
+        n_steps += 1
+    adapt_counts = launch_counts()
+    if adapt_counts["segment_cuda"] == 0:
+        raise AssertionError("segment_cuda never launched while serving "
+                             "adaptively")
+    log(f"[adapt] contended remap after {k} steps; {len(ctl.journal)} "
+        f"journal entries over {n_steps} steps, every answer equal to plain "
+        f"CPU forward_packed; launches {adapt_counts}")
+    ws = ProfileStore(f"dir://{store_root}", device=dev).warm_start(
+        model, batch_sizes=PROFILE_BATCHES)
+    if ws is None or ws[1].layer_configs != ctl.journal[-1].new_configs:
+        raise AssertionError("a fresh store did not warm-start the last "
+                             "remapped mapping")
+    log(f"[adapt] a fresh store warm-starts the last remapped mapping: "
+        + " ".join(ws[1].layer_configs))
+
+    # telemetry's cost: the same traffic on two engines under the DP
+    # mapping, one sampling every step, in turns (on, off, off, on, ...)
+    engines = {"on": ServingEngine(model, packed, config,
+                                   allowed_batch_sizes=table.batch_sizes,
+                                   device=dev,
+                                   telemetry=SegmentTelemetry(warmup=0)),
+               "off": ServingEngine(model, packed, config,
+                                    allowed_batch_sizes=table.batch_sizes,
+                                    device=dev)}
+    walls: dict = {"on": [], "off": []}
+    for i in range(2 * TELEMETRY_STEPS + 2):
+        which = ("on", "off", "off", "on")[i % 4]
+        wall, _ = serve_burst(engines[which], engines[which].step, i)
+        if i >= 2:                                 # one warm-up step each
+            walls[which].append(wall)
+    p50 = {k: float(np.percentile(v, 50)) * 1e3 for k, v in walls.items()}
+    log(f"[adapt] step wall p50 over {TELEMETRY_STEPS} steps of "
+        f"{ADAPT_BURST} requests under the DP mapping: telemetry on "
+        f"{p50['on']:.3f} ms, off {p50['off']:.3f} ms "
+        f"({p50['on'] - p50['off']:+.3f} ms)")
+
+    log(f"[adapt] phase 9: {time.perf_counter() - t_phase:.2f} s")
+
+    # -- 10. the cache service over a write-back tiered store -------------
+    t_phase = time.perf_counter()
+    xs_dev = layer_inputs(prepare_input_packed(images(batch)).to(dev))
+    xs_host = [x.cpu() for x in xs_dev]
+    packed_host = [params_to(p, HOST) for p in packed]
+
+    def measure_layer(layer, cfg, b):
+        """Seconds per example of one layer under `cfg` at batch `b`: a
+        device config on the card (CUDA events over 5 calls after a
+        warm-up), a host config on the host clock (one call)."""
+        if b != batch:
+            raise AssertionError(f"explore at batch {b}, inputs at {batch}")
+        spec = specs[layer]
+        host = is_host_config(cfg)
+        builder = (DEFAULT_REGISTRY.get(cfg).builder
+                   if spec.kind in ("conv", "fc") else None)
+        fn = layer_fn(spec, packed_host[layer] if host else packed[layer],
+                      builder)
+        x = xs_host[layer] if host else xs_dev[layer]
+        if host:
+            t0 = time.perf_counter()
+            fn(x)
+            return (time.perf_counter() - t0) / b
+        return time_ms(lambda: fn(x), 5) / 1e3 / b
+
+    back = LocalDirBackend(store_root / "shared")
+    tier = TieredBackend(MemoryBackend(), back, write_back=True)
+    svc_store = ProfileStore(tier, device=dev)
+    svc_store.save_profile(warm_table)
+    svc_store.save_mapping(engine.config)
+    svc = CacheService(svc_store, profile_fn=no_profiling,
+                       measure_fn=measure_layer, batch_sizes=PROFILE_BATCHES,
+                       explore_min_count=n_steps + 1)
+    svc.register("cifar10", model, packed)
+    svc.enqueue_prewarm("cifar10")
+    svc.drain()
+    rec = svc.journal[-1]
+    if rec.status != "done" or rec.result["profiled"] or rec.result["mapped"]:
+        raise AssertionError(f"prewarm of a warm key: {rec.to_dict()}")
+    log(f"[cachesvc] prewarm over {tier.uri()}: {rec.result}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    svc.enqueue_explore("cifar10", warm_table, batch=batch, counts=counts)
+    svc.drain()
+    explore_s = time.perf_counter() - t0
+    explore_counts = launch_counts()
+    rec = svc.journal[-1]
+    if rec.status != "done" or not rec.result.get("measured"):
+        raise AssertionError(f"explore: {rec.to_dict()}")
+    if explore_counts["xnor_gemm_cuda"] == 0:
+        raise AssertionError("the explore job never launched xnor_gemm_cuda")
+    for row in rec.result["rows"]:
+        log(f"[cachesvc]   L{specs[row['layer']].idx} {row['placement']} "
+            f"{row['config']}: stored {row['stored_s'] * 1e6:.3f} us/example, "
+            f"observed {row['observed_s'] * 1e6:.3f}, ratio "
+            f"{row['ratio']:.3f}")
+    log(f"[cachesvc] explore: {rec.result['measured']} rows re-measured (every "
+        f"row served fewer than {n_steps + 1} times per layer; the fused span's "
+        f"layers ran inside seg_cuda) in {explore_s:.2f} s, improved "
+        f"{rec.result['improved']}, expected "
+        f"{rec.result['old_expected_s'] * 1e6:.3f} -> "
+        f"{rec.result['new_expected_s'] * 1e6:.3f} us/example; launches "
+        f"{explore_counts}")
+    dirty = len(tier.dirty())
+    svc.enqueue_flush()
+    svc.drain()
+    rec = svc.journal[-1]
+    if rec.status != "done" or rec.result["pushed"] <= 0 or not back.list():
+        raise AssertionError(f"flush: {rec.to_dict()}")
+    log(f"[cachesvc] flush: {rec.result} ({dirty} dirty keys, back tier "
+        f"{back.uri()} holds {len(back.list())}); journal "
+        + ", ".join(f"{r.kind} {r.status}" for r in svc.journal))
+    log(f"[cachesvc] phase 10: {time.perf_counter() - t_phase:.2f} s")
+    shutil.rmtree(store_root, ignore_errors=True)
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [

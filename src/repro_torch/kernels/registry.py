@@ -118,7 +118,17 @@ class KernelVariant:
     builder: Callable
     placement: str = DEVICE      # HOST or DEVICE (mapper boundary model)
     scope: str = SCOPE_LAYER     # SCOPE_LAYER or SCOPE_SEGMENT
+    # pricing metadata, the reference's fields and defaults: grid order
+    # from `aspects`, block sizes from p_blk/n_blk (None: the pricing
+    # model's own choice -- kernel 1 picks 64- or 16-row tiles per
+    # launch plan, so no single number is true for it), and `analytic`
+    # the traffic model: "tiled" (loop-nest reuse), "fused" (one pass
+    # over the operands) or "host" (CPU side).  The profile store's
+    # registry hash reads all of them.
     aspects: tuple = ("X", "Y", "Z")
+    p_blk: int | None = None
+    n_blk: int | None = None
+    analytic: str = "tiled"
     applicable: Callable | None = None   # (shape, platform) -> bool
     description: str = ""
 
@@ -244,6 +254,7 @@ def _register_defaults(reg: VariantRegistry) -> VariantRegistry:
             builder=host_xnor_gemm,
             placement=HOST,
             aspects=(),
+            analytic="host",
             description="paper's sequential CPU implementation on host "
             "tensors (no boundary cost)",
         )
@@ -255,6 +266,7 @@ def _register_defaults(reg: VariantRegistry) -> VariantRegistry:
                 builder=partial(xnor_gemm_cuda, aspects=tuple(name)),
                 placement=DEVICE,
                 aspects=tuple(name),
+                analytic="tiled",
                 description=f"CUDA xnor GEMM, {name} as grid dimensions, "
                 "the other aspects serial inside the block",
             )
@@ -266,6 +278,7 @@ def _register_defaults(reg: VariantRegistry) -> VariantRegistry:
             placement=DEVICE,
             scope=SCOPE_SEGMENT,
             aspects=("X",),
+            analytic="fused",
             description="whole device segment as one persistent "
             "cooperative CUDA launch, the batch layer by layer over every "
             "SM, pool/threshold/repack fused into the GEMM epilogue",

@@ -23,6 +23,9 @@ from a completion callback — is deferred and applied after the
 in-flight wave-train retires, so no micro-batch ever sees two
 configurations.  The new pipeline is built *before* the old one is
 released; a failed build leaves the engine serving the old mapping.
+The adaptive loop around this primitive (telemetry -> drift ->
+corrected table -> re-mapped configuration) lives in
+``repro_torch.adapt``.
 
 **Threading contract.**  ``submit()`` is thread-safe — any number of
 client threads may enqueue concurrently (the ``MicroBatcher`` queue is
@@ -43,6 +46,19 @@ from repro_torch.serving.batcher import MicroBatcher, Request
 from repro_torch.serving.pipeline import SegmentPipeline
 
 
+def _tee(always, sampled):
+    """Compose the always-on observer with a (possibly absent)
+    sampled telemetry observer into one pipeline callback."""
+    if sampled is None:
+        return always
+
+    def observe(seg_index, segment, seconds, batch):
+        always(seg_index, segment, seconds, batch)
+        sampled(seg_index, segment, seconds, batch)
+
+    return observe
+
+
 class ServingEngine:
     def __init__(
         self,
@@ -55,12 +71,23 @@ class ServingEngine:
         allowed_batch_sizes: Sequence[int] | None = None,
         clock=time.monotonic,
         device=None,
+        telemetry=None,
+        observer=None,
     ):
         """``max_batch`` defaults to the mapper's proper batch size —
         the batch the configuration was optimized for.  Pass the
         ProfileTable's ``batch_sizes`` as ``allowed_batch_sizes`` so
         partial batches pad to a profiled size.  Device segments run on
-        `device` (``None`` -> ``cuda``)."""
+        `device` (``None`` -> ``cuda``).  ``telemetry``
+        (``repro_torch.adapt.SegmentTelemetry``) records per-segment
+        wall times on its sampled steps; ``None`` serves
+        un-instrumented.  ``observer`` is an *always-on* segment
+        observer fired on every step (composed with the sampled
+        telemetry observer when both are present).  An observer makes
+        the pipelined driver wait for each device segment's own output
+        to read its true wall time, so observation trades that wave's
+        host/device overlap for the measurement (see
+        ``repro_torch.serving.pipeline``)."""
         if max_batch is None:
             max_batch = config.proper_batch_size
         if allowed_batch_sizes is None:
@@ -77,6 +104,8 @@ class ServingEngine:
             clock=clock,
         )
         self._clock = clock
+        self.telemetry = telemetry
+        self.observer = observer
         self.served = 0
         self.steps = 0               # non-empty steps (batch boundaries)
         self.swaps = 0
@@ -84,7 +113,9 @@ class ServingEngine:
         self._pending_swap: EfficientConfiguration | None = None
 
     def _build_pipeline(self, config: EfficientConfiguration):
-        """The segment pipeline serving `config` on this engine's device."""
+        """The segment pipeline serving `config` on this engine's device.
+        Subclass seam: a caller may wrap the returned pipeline's segment
+        callables, e.g. to inject synthetic contention into them."""
         return SegmentPipeline(
             self.model, self.packed_params, config, device=self._device
         )
@@ -156,11 +187,17 @@ class ServingEngine:
             for j, req in enumerate(mb.requests):
                 req.complete(out[j], now)   # pad rows out[n_real:] dropped
 
+        observer = None
+        if self.telemetry is not None:
+            observer = self.telemetry.sample()
+        if self.observer is not None:
+            observer = _tee(self.observer, observer)
         self._in_step = True
         try:
             self.pipeline.run_pipelined(
                 [mb.x for mb in batches],
                 on_complete=complete,
+                observer=observer,
             )
         except BaseException as e:
             # requests already popped off the queue must not be lost:

@@ -30,8 +30,11 @@ execution are bit-exact for the same inputs.
 (micro-batch, segment) execution with the segment's wall time for a
 ``batch``-row micro-batch.  With ``observer=None`` the drivers are
 exactly the un-instrumented code paths.  When observing, the pipelined
-driver synchronises the device after each device segment to read a
-true wall time, which serializes that wave's device/host overlap.
+driver waits for each device segment's own output (an event recorded
+on the serving stream right after the segment's launches) to read a
+true wall time, which serializes that wave's device/host overlap.  It
+never synchronises the whole device: work queued on other streams is
+not billed to the segment.
 """
 
 from __future__ import annotations
@@ -104,9 +107,15 @@ class SegmentPipeline:
     def segments(self) -> tuple:
         return tuple(seg for seg, _ in self.segment_fns)
 
-    def _sync(self) -> None:
+    def _wait_for_segment(self) -> None:
+        """Block until the work queued so far on this pipeline's serving
+        stream has finished: an event recorded on that stream, not a
+        device-wide sync, so other streams' queued work is not waited
+        for."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
 
     def _download(self, out: torch.Tensor):
         """Start the D2H of a device segment's output."""
@@ -195,7 +204,7 @@ class SegmentPipeline:
                 else:
                     t0 = time.perf_counter()
                     out = fn(x)
-                    self._sync()
+                    self._wait_for_segment()
                     observer(s, seg, time.perf_counter() - t0, x.shape[0])
                 state[i] = self._download(out)
             # host advances: reading a device result waits for its D2H

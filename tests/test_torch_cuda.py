@@ -34,6 +34,7 @@ from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E
 from repro_torch.kernels.ref import xnor_gemm_ref  # noqa: E402
 from repro_torch.kernels.segment_fused import _run_chain  # noqa: E402
 from repro_torch.models import modules as T_MOD  # noqa: E402
+from repro_torch.serving import SegmentPipeline  # noqa: E402
 
 ASPECTS = ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")
 SPANS = {
@@ -222,6 +223,43 @@ def test_mapped_plan_on_the_card_equals_the_plain_forward(dev):
                    device=dev)(xs[0].cpu())
     assert torch.equal(got, xs[-1].cpu())
     assert segment_cuda.launches == before["s"] + 1
+
+
+def test_observed_device_segment_waits_for_its_own_stream_only(dev):
+    """An observed device segment is timed by waiting for the serving
+    stream's own work, not by a device-wide sync: a long sleep queued on
+    another stream just before the segment is not billed to it."""
+    m, packed, xs = _net("cifar10", dev)
+    n = len(m.specs)
+    row = [{c: 1e-4 for c in CONFIGS} for _ in range(n)]
+    table = ProfileTable(
+        m.name, (3,), tuple(f"L{s.idx}:{s.notation}" for s in m.specs),
+        {3: row}, kernel_times={3: row},
+        h2d_times={3: [1e-5] * n}, d2h_times={3: [1e-5] * n})
+    ec = price_mapping(table, 3, ("CPU", "CPU") + ("XYZ",) * (n - 2))
+    pipe = SegmentPipeline(m, packed, ec, device=dev)
+    x = xs[0].cpu().numpy()
+    want = pipe.run_serial(x)                # builds and loads the kernels
+    side = torch.cuda.Stream(dev)
+    cycles = 200_000_000                     # about 0.1 s at 2 GHz
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+    end.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+    seen = []
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(cycles)
+    out = pipe.run_pipelined(
+        [x], observer=lambda i, seg, t, b: seen.append((seg.on_device, t)))
+    torch.cuda.synchronize()
+    assert np.array_equal(out[0], want)
+    device_s = [t for on_device, t in seen if on_device]
+    assert len(device_s) == 1 and len(seen) == 2
+    assert device_s[0] < sleep_s / 2, (device_s, sleep_s)
 
 
 # (b, h, hkv, sq, sk, d, dtype, causal): f32 is held at 1e-4 (only the

@@ -73,7 +73,11 @@ def test_scan_covers_the_whole_port():
     names = {p.name for p in SCANNED}
     assert {"chip_smoke.py", "xnor_popcount.py", "segment_fused.py",
             "engine.py", "profiler.py", "flash_attention.py", "ops.py",
-            "transformer.py", "steps.py", "serve.py"} <= names
+            "transformer.py", "steps.py", "serve.py", "telemetry.py",
+            "drift.py", "controller.py", "hillclimb.py", "profile_store.py",
+            "backends.py", "workqueue.py", "jobs.py", "service.py"} <= names
+    packages = {p.parent.name for p in SCANNED if p.name == "__init__.py"}
+    assert {"adapt", "store", "cachesvc"} <= packages
 
 
 @pytest.mark.parametrize(

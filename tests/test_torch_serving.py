@@ -205,13 +205,13 @@ def test_swap_requested_mid_step_lands_at_the_batch_boundary():
     old_pipeline = engine.pipeline
     pipeline_run = old_pipeline.run_pipelined
 
-    def run(inputs, *, on_complete):
+    def run(inputs, *, on_complete, observer=None):
         def complete(i, out):
             if i == 0:
                 applied.append(engine.swap_configuration(second))
             assert engine.config is first     # never mid wave-train
             on_complete(i, out)
-        return pipeline_run(inputs, on_complete=complete)
+        return pipeline_run(inputs, on_complete=complete, observer=observer)
 
     old_pipeline.run_pipelined = run
     reqs = [engine.submit(xw[i]) for i in range(N_EXAMPLES)]
