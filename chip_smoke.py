@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    GQA groups 1/2/7, ragged S, strided views with an offset, the
    alignment refusal; ``segment_cuda`` at B 1/8/16/33 on both paper
    nets and three spans); any failure fails the run;
-3. kernel 1, ``xnor_gemm_cuda``: all 7 aspect configurations at every
+3. kernel 1, ``xnor_gemm_cuda``: all 7 aspect configurations and the
+   3 registered tile variants (``cuda_p16n64``, ``cuda_p32n64``,
+   ``cuda_p64n32``) at every
    CIFAR-10 and Fashion-MNIST GEMM shape, B in {1, 8, 16, 33}, plus a
    ragged shape (P, N no tile multiples, Kw = 5), on random words and on
    all-zero and all-one words, each ``torch.equal`` to the plain
@@ -59,8 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. kernel timings at the main-path shapes (device time per launch from
    the profiler's trace; CUDA events for the time per call and for the
    plain versions), beside the least time the card could take.  Kernel
-   1 under all 7 aspect configurations at every conv/fc layer at B 16
-   and B 1; the card's 1-bit tensor-core rate measured by
+   1 under all 7 aspect configurations and the 3 tile variants at every
+   conv/fc layer at B 16 and B 1; the card's 1-bit tensor-core rate measured by
    ``xnor_mma_probe_kernel``, and each bound both ways: over that rate
    (the bound the JSON line carries) and over the popc pipe (the bound
    of the rows before the 1-bit product); ``torch._int_mm`` on the same
@@ -90,7 +92,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    an explore job re-measures the rows phase 9's traffic never verified
    per layer, timing each layer's ``layer_fn`` with CUDA events on the
    card (``xnor_gemm_cuda`` must launch), and a flush job pushes the
-   dirty keys to the back tier.
+   dirty keys to the back tier;
+11. autotune: ``autotune_bnn_model`` measured on the card at batch
+   sizes (1, 4, 16), ``prune_factor`` 3.0, on phase 5's weights: every
+   GEMM row holds the fixed 8, every elementwise row is the fixed 8,
+   every tile variant is timed at some layer; per GEMM layer at B 1 and
+   16 the candidates, the pruned ones and the winner against ``XYZ``.
+   The DP over the autotuned space must be predicted no slower than the
+   DP over the fixed 8 on the same table; ``fuse_mapping`` with
+   ``seg_cuda``; 32 requests served under the fused autotuned mapping,
+   each equal to the plain CPU ``forward_packed``.  The paper's
+   comparison: ``best_uniform(table, "XYZ")`` against the DP, predicted
+   and served (p50 under all-``XYZ`` and under the DP, same requests).
+   The analytic H100 model's kernel and boundary times over the measured
+   rows at B 1 and 16, per layer and per kind.  A ``LatencyPredictor``
+   fitted on the stored training rows at B 1 and 4, its error at B 16;
+   a refit job through a ``CacheService`` on the phase 8 store must
+   persist a predictor whose metadata names the stored row count.
 
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
@@ -101,8 +119,9 @@ The launch counts are zeroed just before each main path and read just
 after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
 launch once per layer of the prefill, 24 times), phases 5-6 up to
 phase 6's untraced serving (both BNN kernels must have launched while
-serving), phase 9's adaptive serving (``segment_cuda``) and phase 10's
-explore job (``xnor_gemm_cuda``).  The last
+serving), phase 9's adaptive serving (``segment_cuda``), phase 10's
+explore job (``xnor_gemm_cuda``) and phase 11's autotune sweep and
+serving (``xnor_gemm_cuda``).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +130,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -139,6 +159,9 @@ FMNIST_GEMM_SHAPES = (
 )
 RAGGED_SHAPE = ("ragged", 37, 21, 5, 150)   # P, N not tile multiples, Kw tail
 ASPECT_SETS = ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")
+# kernel 1's registered tile variants: name -> (p_blk, n_blk), aspects XYZ
+TILE_VARIANTS = {"cuda_p16n64": (16, 64), "cuda_p32n64": (32, 64),
+                 "cuda_p64n32": (64, 32)}
 # kernel 1's timing sweep: batches, launches per case
 SWEEP_BATCHES = (16, 1)
 SWEEP_ITERS = 20
@@ -511,8 +534,15 @@ def main() -> int:
         prepare_input_packed, random_fp_params,
     )
     from repro_torch.core import (
-        fuse_mapping, map_efficient_configuration, price_mapping,
-        profile_bnn_model, profile_segment_variants,
+        autotune_bnn_model, best_uniform, build_plan, fuse_mapping,
+        map_efficient_configuration, price_mapping, profile_bnn_model,
+        profile_segment_variants,
+    )
+    from repro_torch.core.cost_model import layer_time_split_h100
+    from repro_torch.core.parallel_config import CONFIGS
+    from repro_torch.core.profiler import gemm_shape_of
+    from repro_torch.estimator import (
+        LatencyPredictor, group_key, training_rows_from_table,
     )
     from repro_torch.device import HOST
     from repro_torch import configs as lm_configs
@@ -611,6 +641,10 @@ def main() -> int:
                              dtype=torch.int32).to(dev)
 
     # -- 3. kernel 1 against its plain version ---------------------------
+    for v, tiles in TILE_VARIANTS.items():
+        reg = DEFAULT_REGISTRY.get(v)
+        if (reg.p_blk, reg.n_blk, reg.aspects) != (*tiles, ("X", "Y", "Z")):
+            raise AssertionError(f"registered {v}: {reg}")
     err1 = 0
     n_checks = 0
     shapes = GEMM_SHAPES + FMNIST_GEMM_SHAPES + (RAGGED_SHAPE,)
@@ -621,16 +655,22 @@ def main() -> int:
     for b, (name, p, n, kw, k_true), kind in cases:
         a, w = words(b, p, kw, kind=kind), words(n, kw, kind=kind)
         ref = xnor_gemm_ref(a, w, k_true)
-        for asp in ASPECT_SETS:
-            out = xnor_gemm_cuda(a, w, k_true, tuple(asp))
+        launches = [(asp, lambda asp=asp: xnor_gemm_cuda(a, w, k_true,
+                                                         tuple(asp)))
+                    for asp in ASPECT_SETS]
+        launches += [(v, lambda v=v: DEFAULT_REGISTRY.get(v).builder(
+            a, w, k_true)) for v in TILE_VARIANTS]
+        for label, launch in launches:
+            out = launch()
             torch.cuda.synchronize()
             err1 = max(err1, max_abs_err(out, ref))
             if not torch.equal(out, ref):
                 raise AssertionError(
-                    f"xnor_gemm_cuda {asp} B={b} {name} {kind} differs")
+                    f"xnor_gemm_cuda {label} B={b} {name} {kind} differs")
             n_checks += 1
     log(f"[kernel 1] xnor_gemm_cuda: {n_checks} checks torch.equal to "
-        f"xnor_gemm_ref (7 aspects x {len(shapes)} shapes x B in "
+        f"xnor_gemm_ref (7 aspects and the {len(TILE_VARIANTS)} tile "
+        f"variants {tuple(TILE_VARIANTS)} x {len(shapes)} shapes x B in "
         f"{CHECK_BATCHES} on random words, and all-zero / all-one words "
         f"at 3 shapes x B in (1, 33)), max_abs_err {err1}")
 
@@ -837,6 +877,8 @@ def main() -> int:
     if expected.shape != (N_REQUESTS, model.n_classes):
         raise AssertionError(f"reference output shape {expected.shape}")
 
+    p50s: dict = {}
+
     def serve(label, config, batch_sizes, trace=False):
         before = launch_counts()
         engine = ServingEngine(model, packed, config,
@@ -867,6 +909,7 @@ def main() -> int:
                 + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
             return None
         lat = np.array([r.latency_s for r in reqs]) * 1e3
+        p50s[label] = float(np.percentile(lat, 50))
         after = launch_counts()
         used = {k: after[k] - before[k] for k in after}
         log(f"[{label}] {N_REQUESTS} requests in one burst, batch "
@@ -960,6 +1003,11 @@ def main() -> int:
                 sweep.append((f"{name} B{b} {asp}",
                               lambda a=a, w=w, k=k_true, asp=asp:
                               xnor_gemm_cuda(a, w, k, tuple(asp))))
+            for v, (pb, nb) in TILE_VARIANTS.items():
+                sweep.append((f"{name} B{b} {v}",
+                              lambda a=a, w=w, k=k_true, pb=pb, nb=nb:
+                              xnor_gemm_cuda(a, w, k, ("X", "Y", "Z"),
+                                             p_blk=pb, n_blk=nb)))
     sweep_dev, n_traced = kernel_sweep(sweep, "xnor_gemm_kernel",
                                        SWEEP_ITERS)
     log(f"[time] xnor_gemm_cuda sweep: {len(sweep)} cases x {SWEEP_ITERS} "
@@ -978,7 +1026,7 @@ def main() -> int:
                 f"Kw={kw}: device ms per launch / per call: " + " ".join(
                     f"{asp}={sweep_dev[f'{name} B{b} {asp}']:.5f}/"
                     f"{sweep_call[f'{name} B{b} {asp}']:.5f}"
-                    for asp in ASPECT_SETS)
+                    for asp in ASPECT_SETS + tuple(TILE_VARIANTS))
                 + f"; bound {b_ms:.4g} ms ({b_by}; 1-bit MMA rate), popc-pipe "
                 f"bound {p_ms:.4g} ms ({p_by})")
             if b == k1_b:
@@ -992,7 +1040,8 @@ def main() -> int:
                     f"{lib:.5f} ms per call")
     for b in SWEEP_BATCHES:
         sums = {asp: sum(sweep_dev[f"{name} B{b} {asp}"]
-                         for name, *_ in per_layer[b]) for asp in ASPECT_SETS}
+                         for name, *_ in per_layer[b])
+                for asp in ASPECT_SETS + tuple(TILE_VARIANTS)}
         log(f"[time] xnor_gemm_cuda B={b} device ms summed over the "
             f"{len(per_layer[b])} layers: " + " ".join(
                 f"{k}={v:.5f}" for k, v in sums.items()))
@@ -1300,6 +1349,159 @@ def main() -> int:
         f"{back.uri()} holds {len(back.list())}); journal "
         + ", ".join(f"{r.kind} {r.status}" for r in svc.journal))
     log(f"[cachesvc] phase 10: {time.perf_counter() - t_phase:.2f} s")
+
+    # -- 11. autotune: the open variant space on the card -----------------
+    t_phase = time.perf_counter()
+    tiles = tuple(TILE_VARIANTS)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    auto = autotune_bnn_model(model, packed, batch_sizes=PROFILE_BATCHES,
+                              prune_factor=3.0, device=dev)
+    auto_s = time.perf_counter() - t0
+    tuned = set()
+    for b in auto.batch_sizes:
+        for i, spec in enumerate(specs):
+            row = auto.configs_for(b, i)
+            if spec.kind not in ("conv", "fc"):
+                if row != CONFIGS:
+                    raise AssertionError(f"elementwise row L{spec.idx} B={b}: "
+                                         f"{row}")
+                continue
+            if row[:len(CONFIGS)] != CONFIGS:
+                raise AssertionError(f"GEMM row L{spec.idx} B={b}: {row}")
+            cands = [v.name for v in DEFAULT_REGISTRY.applicable(
+                gemm_shape_of(spec, packed[i], b), "cuda")
+                if v.name not in CONFIGS]
+            tuned |= set(cands)
+            if b not in (1, 16):
+                continue
+            krow = auto.kernel_times[b][i]
+            dev_row = {c: t for c, t in krow.items() if c != "CPU"}
+            win = min(dev_row, key=dev_row.get)
+            log(f"[autotune] L{spec.idx} {spec.notation} B={b}: candidates "
+                f"{cands}, pruned {[c for c in cands if c not in row]}; row "
+                f"best {auto.best_config(b, i)[0]}; device winner {win} "
+                f"{dev_row[win] * 1e6:.3f} us/example against XYZ "
+                f"{dev_row['XYZ'] * 1e6:.3f} ({dev_row[win] / dev_row['XYZ']:.3f}"
+                f"x)")
+    if tuned != set(tiles):
+        raise AssertionError(f"the sweep timed tile variants {tuned}, "
+                             f"registered {tiles}")
+    sweep_launches = launch_counts()["xnor_gemm_cuda"]
+    if sweep_launches == 0:
+        raise AssertionError("the autotune sweep never launched "
+                             "xnor_gemm_cuda")
+    log(f"[autotune] autotune_bnn_model {PROFILE_BATCHES} measured on the "
+        f"card, prune_factor 3.0: {auto_s:.1f} s (phase 5's fixed-8 "
+        f"profile: {profile_s:.1f} s); every tile variant timed at some "
+        f"layer; xnor_gemm_cuda launched {sweep_launches} times")
+
+    dp_auto = map_efficient_configuration(auto, policy="dp")
+    dp_fixed = map_efficient_configuration(auto, policy="dp", configs=CONFIGS)
+    if dp_auto.expected_time_per_example > dp_fixed.expected_time_per_example:
+        raise AssertionError("the autotuned DP is predicted slower than the "
+                             "fixed-8 DP on the same table")
+    fused_auto = fuse_mapping(model, packed, auto, dp_auto, device=dev)
+    in_span = {i: name for s0, e0, name, _ in fused_auto.fused_segments
+               for i in range(s0, e0)}
+    log(f"[autotune] DP autotuned {dp_auto.expected_time_per_example * 1e6:.3f}"
+        f" us/example at B {dp_auto.proper_batch_size} <= fixed-8 DP "
+        f"{dp_fixed.expected_time_per_example * 1e6:.3f} at B "
+        f"{dp_fixed.proper_batch_size}; fused "
+        f"{build_plan(fused_auto).expected_time_per_example * 1e6:.3f}; "
+        f"served by: " + " ".join(
+            f"{lab.split(':')[0]}={in_span.get(i, c)}" for i, (lab, c) in
+            enumerate(zip(dp_auto.layer_labels, dp_auto.layer_configs))))
+    serve("serve autotuned", fused_auto, auto.batch_sizes)
+    # the paper's comparison: the fully parallel GPU implementation at its
+    # best batch against the DP mapping, predicted and served
+    b_xyz, t_xyz = best_uniform(auto, "XYZ")
+    uniform = price_mapping(auto, b_xyz, ("XYZ",) * len(specs))
+    serve("serve uniform XYZ", uniform, auto.batch_sizes)
+    serve("serve autotuned dp", dp_auto, auto.batch_sizes)
+    auto_counts = launch_counts()
+    if auto_counts["xnor_gemm_cuda"] == 0:
+        raise AssertionError("phase 11 never launched xnor_gemm_cuda")
+    log(f"[autotune] paper comparison: best uniform XYZ (B {b_xyz}) "
+        f"{t_xyz * 1e6:.3f} us/example predicted, DP "
+        f"{dp_auto.expected_time_per_example * 1e6:.3f} "
+        f"({t_xyz / dp_auto.expected_time_per_example:.3f}x); served p50 "
+        f"over the same {N_REQUESTS} requests: uniform XYZ "
+        f"{p50s['serve uniform XYZ']:.3f} ms, DP "
+        f"{p50s['serve autotuned dp']:.3f} ms "
+        f"({p50s['serve uniform XYZ'] / p50s['serve autotuned dp']:.3f}x), "
+        f"DP fused {p50s['serve autotuned']:.3f} ms; launches over phase 11 "
+        f"{auto_counts}")
+
+    # the analytic H100 model against the card's rows
+    ratios: dict = {}
+    for b in (1, 16):
+        for i, spec in enumerate(specs):
+            row = auto.configs_for(b, i)
+            cfgs = ["XYZ"] + ([c for c in tiles if c in row]
+                              if spec.kind in ("conv", "fc") else [])
+            parts = []
+            for cfg in cfgs:
+                kern, h2d, d2h = layer_time_split_h100(spec, cfg, b)
+                r = kern / b / auto.kernel_time(b, i, cfg)
+                ratios.setdefault(spec.kind, []).append(r)
+                parts.append(f"{cfg} {r:.3f}")
+            for name, mod, meas in (("h2d", h2d, auto.h2d(b, i)),
+                                    ("d2h", d2h, auto.d2h(b, i))):
+                ratios.setdefault(name, []).append(mod / b / meas)
+                parts.append(f"{name} {mod / b / meas:.3f}")
+            log(f"[h100 model] L{spec.idx} {spec.notation} B={b}: analytic / "
+                f"measured " + ", ".join(parts))
+    log("[h100 model] analytic / measured per kind (B 1 and 16): " + "; ".join(
+        f"{k} median {np.median(v):.4f} range {min(v):.4f}-{max(v):.4f} "
+        f"(n={len(v)})" for k, v in ratios.items()))
+    # ... and against kernel 1's traced device time per launch (phase 7)
+    by_cfg: dict = {}
+    for b in SWEEP_BATCHES:
+        for name, *_ in per_layer[b]:
+            spec = next(sp for sp in specs if f"L{sp.idx}" == name)
+            for cfg in ASPECT_SETS + tiles:
+                kern = layer_time_split_h100(spec, cfg, b)[0] * 1e3
+                by_cfg.setdefault(cfg, []).append(
+                    kern / sweep_dev[f"{name} B{b} {cfg}"])
+    log("[h100 model] analytic kernel / traced device ms per launch (phase "
+        "7, 8 GEMM layers x B 16 and 1): " + "; ".join(
+            f"{k} median {np.median(v):.3f} range {min(v):.3f}-{max(v):.3f}"
+            for k, v in by_cfg.items()))
+
+    # the estimator: fitted on B 1 and 4, held out at B 16
+    store.save_training_rows(training_rows_from_table(model, auto),
+                             source="chip_smoke autotune")
+    rows = store.load_training_rows()
+    train = [r for r in rows if r["batch"] in (1, 4)]
+    held = [r for r in rows if r["batch"] == 16]
+    pred = LatencyPredictor().fit(train)
+    errs: dict = {}
+    for r in held:
+        e = abs(math.log(pred.predict_kernel_s(r["geometry"], r["meta"])
+                         / r["kernel_s"]))
+        errs.setdefault(group_key(r["geometry"], r["meta"]), []).append(e)
+    every = [e for v in errs.values() for e in v]
+    log(f"[estimator] LatencyPredictor on {len(train)} rows (B 1, 4 of the "
+        f"phase 5 and phase 11 tables), {len(held)} held out at B 16: "
+        f"|log(predicted / measured)| median {np.median(every):.4f} max "
+        f"{max(every):.4f}; per group: " + "; ".join(
+            f"{k} median {np.median(v):.4f} max {max(v):.4f} (n={len(v)})"
+            for k, v in sorted(errs.items())))
+    refit_store = ProfileStore(f"dir://{store_root}", device=dev)
+    svc = CacheService(refit_store, refit_min_new_rows=1)
+    svc.enqueue_refit()
+    svc.drain()
+    rec = svc.journal[-1]
+    meta = refit_store.predictor_meta()
+    if (rec.kind != "refit" or rec.status != "done" or not rec.result["refit"]
+            or meta is None or meta["source_rows"] != len(rows)
+            or meta["n_rows"] != rec.result["n_rows"]):
+        raise AssertionError(f"refit: {rec.to_dict()}, meta {meta}")
+    log(f"[estimator] refit through CacheService on {refit_store.backend.uri()}"
+        f": {rec.result}; predictor_meta {meta['n_rows']} rows fitted of "
+        f"{meta['source_rows']} stored")
+    log(f"[autotune] phase 11: {time.perf_counter() - t_phase:.2f} s")
     shutil.rmtree(store_root, ignore_errors=True)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -5,9 +5,12 @@ Module names mirror ``repro`` (``repro.core.mapper`` <->
 
 * the paper's main path: packed BNN inference (:mod:`repro_torch.bnn`),
   the CPU + 7 aspect-config xnor GEMM and the fused-segment kernel
-  (:mod:`repro_torch.kernels`), profiling, mapping and the plan
-  executor (:mod:`repro_torch.core`), and the serving runtime
+  (:mod:`repro_torch.kernels`), profiling (measured, autotuned over the
+  variant registry, or priced by an analytic H100 model), mapping and
+  the plan executor (:mod:`repro_torch.core`), and the serving runtime
   (:mod:`repro_torch.serving`);
+* the learned latency estimator and the calibrated interference law
+  (:mod:`repro_torch.estimator`);
 * the adaptive runtime (:mod:`repro_torch.adapt`), the profile store
   (:mod:`repro_torch.store`) and the cache service
   (:mod:`repro_torch.cachesvc`);

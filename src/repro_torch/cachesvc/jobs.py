@@ -10,10 +10,13 @@ idempotent function returning a JSON-able result dict for the
     written.
 
 ``refit``
-    Retrain the learned estimators.  The port has no estimator yet
-    (ROADMAP queue 1 item 9): :func:`refit_once` raises
-    ``NotImplementedError``, so a queued refit is journaled as a failed
-    job.
+    Retrain the learned estimators when enough new training rows
+    accumulated since the last persisted fit: :func:`refit_once`
+    compares the store's row count against the saved predictor's
+    ``source_rows`` stamp and re-fits the
+    :class:`~repro_torch.estimator.LatencyPredictor` (and, when ledger
+    observations are supplied, the
+    :class:`~repro_torch.estimator.interference.FittedInterference` law).
 
 ``explore``
     Close the exploration gap — *telemetry can only correct placements
@@ -351,10 +354,38 @@ def refit_once(
     observations=None,
     predictor_kwargs: dict | None = None,
 ) -> dict:
-    """One refit pass (the ``refit`` job body): the JAX package
-    retrains its latency predictor (and interference law) here.  The
-    estimator is not ported yet, so this raises."""
-    raise NotImplementedError(
-        "refit_once is not ported yet (ROADMAP queue 1 item 9: the "
-        "latency estimator and the interference model)"
-    )
+    """One refit pass (the ``refit`` job body): retrain the
+    :class:`~repro_torch.estimator.LatencyPredictor` when at least
+    `min_new_rows` training rows accumulated since the last persisted
+    fit (first fit counts from zero).  ``observations=(ledger,
+    expected_step_s)`` additionally recalibrates the interference law
+    from that ledger's slowdowns.  Idempotent — re-running after a fit
+    with no new rows is a no-op."""
+    from repro_torch.estimator.latency import LatencyPredictor
+
+    rows = store.load_training_rows()
+    meta = store.predictor_meta()
+    fitted_on = 0 if meta is None else meta["source_rows"]
+    new_rows = len(rows) - fitted_on
+    out = {
+        "rows": len(rows),
+        "new_rows": new_rows,
+        "refit": False,
+        "interference": False,
+    }
+    if rows and new_rows >= min_new_rows:
+        pred = LatencyPredictor(**(predictor_kwargs or {})).fit(rows)
+        store.save_predictor(pred, source_rows=len(rows))
+        out["refit"] = True
+        out["n_rows"] = pred.n_rows
+    if observations is not None:
+        from repro_torch.estimator.interference import InterferenceFit
+
+        ledger, expected = observations
+        fit = InterferenceFit.from_ledger(ledger, expected)
+        if len(fit):
+            law = fit.fit()
+            store.save_interference(law)
+            out["interference"] = True
+            out["gamma"] = law.gamma
+    return out

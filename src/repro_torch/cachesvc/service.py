@@ -11,9 +11,8 @@ deduped, journaled background jobs:
   ranks the catalog by the backend's per-key access counters (every
   serving-path ``load_*`` feeds them), so the keys real traffic asks
   for most are warmed first.
-* :meth:`enqueue_refit` — retrain the learned estimators
-  (``jobs.refit_once``; not ported yet, so the job fails and the
-  journal records the failure).
+* :meth:`enqueue_refit` — retrain the learned estimators when enough
+  new training rows accumulated (``jobs.refit_once``).
 * :meth:`enqueue_explore` — re-profile never-or-stale-executed
   placements from a coverage report and fold corrections back
   (``jobs.explore_once``), closing the exploration residual off the
@@ -149,10 +148,7 @@ class CacheService:
     # -- refit -------------------------------------------------------
     def enqueue_refit(self, *, observations=None) -> bool:
         """Queue an estimator refit (predictor + optional interference
-        law from ``observations=(ledger, expected_step_s)``).  The
-        estimator is not ported yet (ROADMAP queue 1 item 9): the job
-        raises ``NotImplementedError`` and the queue journals it as a
-        failed job."""
+        law from ``observations=(ledger, expected_step_s)``)."""
         key = self.store._predictor_key()
         return self.queue.submit(
             "refit",

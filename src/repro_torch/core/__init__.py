@@ -3,15 +3,17 @@
 * :mod:`parallel_config` — the per-layer implementation space: the
   paper's fixed 8 (CPU + 7 X/Y/Z aspect configurations) plus any name
   registered in :mod:`repro_torch.kernels.registry`.
-* :mod:`profiler` — measured per-layer latency across implementations
-  and batch sizes, host configs on CPU tensors and device configs on
-  the card, with the host<->device boundary costs timed separately.
+* :mod:`profiler` — per-layer latency across implementations and batch
+  sizes, host configs on CPU tensors and device configs on the card,
+  with the host<->device boundary costs timed separately (or priced by
+  the H100 model); ``autotune_bnn_model`` sweeps the registry's open
+  space with warm-up pruning.
 * :mod:`mapper` — the paper's greedy Algorithm 1 and the
   transfer-aware Viterbi DP -> :class:`EfficientConfiguration`.
 * :mod:`plan` — the segment plan IR and fused-segment selection.
 * :mod:`mapped_model` — the one executor over plan nodes.
-* :mod:`cost_model` — the framework-free segment/pipeline pricing
-  algebra.
+* :mod:`cost_model` — the pricing algebra (segments, pipeline,
+  contention) and the analytic H100 model.
 """
 
 from repro_torch.core.parallel_config import (
@@ -23,9 +25,12 @@ from repro_torch.core.parallel_config import (
 from repro_torch.core.mapper import (
     EfficientConfiguration,
     Segment,
+    best_uniform,
+    configuration_from_mapping,
     map_efficient_configuration,
     price_mapping,
     segments_of,
+    uniform_total,
 )
 from repro_torch.core.profiler import (
     ProfileTable,
@@ -33,7 +38,7 @@ from repro_torch.core.profiler import (
     profile_bnn_model,
     profile_segment_variants,
 )
-from repro_torch.core.plan import build_plan, fuse_mapping
+from repro_torch.core.plan import build_plan, fuse_configuration, fuse_mapping
 from repro_torch.core.mapped_model import build_mapped_model, build_segment_fns
 
 __all__ = [
@@ -44,9 +49,12 @@ __all__ = [
     "Segment",
     "aspects_of",
     "autotune_bnn_model",
+    "best_uniform",
     "build_mapped_model",
     "build_plan",
     "build_segment_fns",
+    "configuration_from_mapping",
+    "fuse_configuration",
     "fuse_mapping",
     "is_host_config",
     "map_efficient_configuration",
@@ -54,4 +62,5 @@ __all__ = [
     "profile_bnn_model",
     "profile_segment_variants",
     "segments_of",
+    "uniform_total",
 ]

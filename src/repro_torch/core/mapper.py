@@ -201,6 +201,19 @@ class EfficientConfiguration:
                 host += t
         return host, device
 
+    def placement_shares(self) -> tuple:
+        """(host_share, device_share): the fraction of this
+        configuration's serial execution time spent on each processor
+        (``stage_times`` normalized; sums to 1) — the tenant's demand
+        profile the fleet tier charges co-tenants as contention when no
+        measured shares are available.  A configuration with zero total
+        time reports (0, 0)."""
+        host, device = self.stage_times()
+        total = host + device
+        if total <= 0.0:
+            return 0.0, 0.0
+        return host / total, device / total
+
     def pipelined_expected_time(self, n_microbatches: int) -> float:
         """Expected seconds/example of the two-stage segment pipeline
         over ``n_microbatches`` micro-batches of the proper batch size
@@ -519,3 +532,38 @@ def price_mapping(
         per_layer_kernel_times=kernels,
         per_layer_boundary_times=boundaries,
     )
+
+
+def configuration_from_mapping(
+    table: ProfileTable,
+    batch: int,
+    mapping: Sequence[str],
+) -> EfficientConfiguration:
+    """Deprecated spelling of :func:`price_mapping` — kept importable;
+    warns once per call site and delegates."""
+    from repro_torch._compat import warn_deprecated
+
+    warn_deprecated(
+        "configuration_from_mapping", "repro_torch.core.price_mapping"
+    )
+    return price_mapping(table, batch, mapping)
+
+
+def uniform_total(table: ProfileTable, config: str, batch: int) -> float:
+    """Seconds/example when every layer uses `config` at `batch` (the
+    paper's naive-X / full-XYZ / CPU-only baselines, Fig. 5)."""
+    validate(config)
+    return sum(
+        table.times[batch][i][config]
+        for i in range(len(table.layer_labels))
+    )
+
+
+def best_uniform(table: ProfileTable, config: str) -> tuple:
+    """(batch, seconds/example) of the best batch size for a uniform
+    config — the strongest version of each baseline."""
+    cand = [
+        (uniform_total(table, config, b), b) for b in table.batch_sizes
+    ]
+    t, b = min(cand)
+    return b, t

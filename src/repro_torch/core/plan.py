@@ -529,3 +529,18 @@ def fuse_mapping(
         device=device,
     )
     return select_fused_segments(config, table, registry=registry)
+
+
+def fuse_configuration(
+    model,
+    packed_params,
+    table,
+    config: EfficientConfiguration,
+    **kwargs,
+) -> EfficientConfiguration:
+    """Deprecated spelling of :func:`fuse_mapping` — kept importable;
+    warns once per call site and delegates."""
+    from repro_torch._compat import warn_deprecated
+
+    warn_deprecated("fuse_configuration", "repro_torch.core.fuse_mapping")
+    return fuse_mapping(model, packed_params, table, config, **kwargs)

@@ -24,8 +24,19 @@ the DP mapper prices boundary only where placement changes.
 Times are stored **seconds per example**, so totals are comparable
 across batch sizes.
 
-``time_source="analytic"`` and :func:`autotune_bnn_model` are not ported
-yet (ROADMAP queue 1 item 4): they raise ``NotImplementedError``.
+Two entry points, one ``ProfileTable`` output: :func:`profile_bnn_model`
+(the fixed candidate list) and :func:`autotune_bnn_model` — per-layer
+candidates from the kernel-variant registry filtered by each GEMM
+layer's shape and the platform, so rows are variable-size (always a
+superset of the fixed 8).  In measured mode every candidate gets a
+one-repeat warm-up timing first, and extended variants dominated by
+``prune_factor`` x the best warm-up are dropped before the full sweep;
+the fixed 8 are never pruned.
+
+``time_source="measured"`` times the candidates on the card (or on CPU
+tensors with ``device="cpu"``); ``"analytic"`` prices them with the H100
+model (``core.cost_model``, ``*_h100``) and executes nothing, so it needs
+no card.
 """
 
 from __future__ import annotations
@@ -40,14 +51,16 @@ import torch
 
 from repro_torch.bnn import layers as L
 from repro_torch.bnn.models import BNNModel, params_to, prepare_input_packed
+from repro_torch.core import cost_model as cm
 from repro_torch.core.parallel_config import CONFIGS, is_host_config
 from repro_torch.device import HOST, resolve_device
-from repro_torch.kernels.registry import DEFAULT_REGISTRY, segment_shape_of
-
-_NOT_PORTED = (
-    "{what} is not ported yet (ROADMAP queue 1 item 4: an H100 analytic "
-    "model and the registry autotune sweep); use time_source='measured'"
+from repro_torch.kernels.registry import (
+    DEFAULT_REGISTRY,
+    GemmShape,
+    segment_shape_of,
 )
+
+TIME_SOURCES = ("measured", "analytic")
 
 
 @dataclasses.dataclass
@@ -73,10 +86,11 @@ class ProfileTable:
     # the candidate rows ``core.plan.select_fused_segments`` compares
     # against the span's per-layer kernel sum
     segment_times: dict | None = None
-    # where the rows came from: "measured" (this profiler stamps its
-    # time_source), or "analytic" / "predicted" on tables the JAX
-    # package wrote.  None on legacy tables; additive, so the schema
-    # stays at 1.
+    # where the rows came from: "measured" / "analytic" (the profiler
+    # stamps its time_source) or "predicted" (synthesized by
+    # repro_torch.estimator.LatencyPredictor with zero profiling
+    # passes).  None on legacy tables; additive, so the schema stays
+    # at 1.
     provenance: str | None = None
 
     @staticmethod
@@ -221,11 +235,16 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _timeit(fn: Callable[[], object], repeats: int, dev: torch.device) -> float:
-    """Best of `repeats` wall times after one warm-up call, each
-    bracketed by a device sync when `dev` is a CUDA device."""
-    fn()  # warm-up (the first CUDA launch also builds the kernels)
-    _sync(dev)
+def _timeit(
+    fn: Callable[[], object], repeats: int, dev: torch.device,
+    warm: bool = True,
+) -> float:
+    """Best of `repeats` wall times after one warm-up call (none with
+    ``warm=False``), each bracketed by a device sync when `dev` is a
+    CUDA device."""
+    if warm:
+        fn()  # warm-up (the first CUDA launch also builds the kernels)
+        _sync(dev)
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
@@ -291,12 +310,67 @@ def _capture_layer_inputs(
     return xs
 
 
+def prune_survivors(
+    warmups: dict, *, never_prune=CONFIGS, prune_factor: float = 3.0
+) -> tuple:
+    """Autotune pruning decision: given one-repeat warm-up timings
+    (name -> seconds), keep every name in `never_prune` plus any
+    variant within ``prune_factor`` x the fastest warm-up.  Dominated
+    extended variants are skipped for the full-repeats sweep (and
+    dropped from the profile row)."""
+    if not warmups:
+        return ()
+    best = min(warmups.values())
+    keep = set(never_prune)
+    return tuple(
+        name
+        for name, t in warmups.items()
+        if name in keep or t <= prune_factor * best
+    )
+
+
+def gemm_shape_of(spec: L.LayerSpec, packed: dict, batch: int):
+    """The GEMM dispatch shape of a conv/fc layer at `batch` (None for
+    elementwise layers) — what variant applicability predicates see."""
+    if spec.kind not in ("conv", "fc"):
+        return None
+    w_words = packed["w_words"]
+    n, kw = int(w_words.shape[0]), int(w_words.shape[1])
+    if spec.kind == "conv":
+        h, w, _ = spec.in_shape
+        return GemmShape(b=batch, p=h * w, n=n, kw=kw)
+    return GemmShape(b=batch, p=1, n=n, kw=kw)
+
+
+def _analytic_rows(spec, candidates, batch, registry):
+    """(row, krow, h2d, d2h) for one layer from the H100 model."""
+    row, krow = {}, {}
+    h2d = d2h = 0.0
+    for cfg in candidates:
+        kern, th2d, td2h = cm.layer_time_split_h100(
+            spec, cfg, batch, registry=registry
+        )
+        krow[cfg] = kern / batch
+        row[cfg] = (kern + th2d + td2h) / batch
+        if not is_host_config(cfg, registry):
+            h2d, d2h = th2d / batch, td2h / batch
+    return row, krow, h2d, d2h
+
+
 def _measured_rows(
-    spec, p_host, p_dev, candidates, batch, x_host, dev, repeats, registry
+    spec, p_host, p_dev, candidates, batch, x_host, dev, repeats,
+    prune_factor, registry,
 ):
     """(row, krow, h2d, d2h) for one layer by timing each candidate on
     its placement: host configs on CPU tensors, device configs on
-    `dev`."""
+    `dev`.
+
+    Every candidate gets a warm-up call and one timed call first; with
+    ``prune_factor`` set, extended variants dominated by
+    ``prune_factor`` x that time of the best candidate are dropped, and
+    the survivors get ``repeats - 1`` more timed calls (each row is the
+    best of ``repeats``).
+    """
     x_dev = x_host.to(dev)
     runs = {}
     for cfg in candidates:
@@ -310,11 +384,26 @@ def _measured_rows(
     x_out_dev = f0(x0).to(dev)
     h2d = _measure_h2d(x_host, dev, repeats) / batch
     d2h = _measure_d2h(x_out_dev, repeats) / batch
+
+    def timed(cfg, n, warm=True):
+        host, f, x = runs[cfg]
+        return _timeit(lambda: f(x), n, HOST if host else dev, warm)
+
+    warmups = {cfg: timed(cfg, 1) for cfg in candidates}
+    if prune_factor is not None:
+        survivors = prune_survivors(
+            warmups, never_prune=CONFIGS, prune_factor=prune_factor
+        )
+    else:
+        survivors = tuple(candidates)
     row, krow = {}, {}
-    for cfg, (host, f, x) in runs.items():
-        t = _timeit(lambda: f(x), repeats, HOST if host else dev) / batch
+    for cfg in survivors:
+        t = warmups[cfg]
+        if repeats > 1:
+            t = min(t, timed(cfg, repeats - 1, warm=False))
+        t /= batch
         krow[cfg] = t
-        row[cfg] = t if host else t + h2d + d2h
+        row[cfg] = t if runs[cfg][0] else t + h2d + d2h
     return row, krow, h2d, d2h
 
 
@@ -325,47 +414,54 @@ def _random_input(model: BNNModel, batch: int, rng) -> torch.Tensor:
     return prepare_input_packed(torch.from_numpy(x01))
 
 
-def profile_bnn_model(
+def _check_time_source(time_source: str) -> None:
+    if time_source not in TIME_SOURCES:
+        raise ValueError(f"unknown time_source {time_source!r}")
+
+
+def _profile(
     model: BNNModel,
     packed_params: list,
+    candidates_fn: Callable,
     *,
-    batch_sizes: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128),
-    configs: Sequence[str] = CONFIGS,
-    repeats: int = 3,
-    seed: int = 0,
-    time_source: str = "measured",
-    device=None,
+    batch_sizes: Sequence[int],
+    repeats: int,
+    seed: int,
+    time_source: str,
+    prune_factor: float | None,
+    registry,
+    device,
 ) -> ProfileTable:
-    """The paper's fixed-space sweep: every layer is timed under the
-    same candidate list (default CPU + 7 aspect configs) at every batch
-    size, host configs on CPU tensors and device configs on `device`
-    (``None`` -> ``cuda``)."""
-    if time_source == "analytic":
-        raise NotImplementedError(_NOT_PORTED.format(what="analytic pricing"))
-    if time_source != "measured":
-        raise ValueError(f"unknown time_source {time_source!r}")
-    dev = resolve_device(device)
-    configs = tuple(configs)
+    """Shared sweep: ``candidates_fn(spec, packed, batch) -> names``
+    decides each layer's searchable space.  Analytic mode executes
+    nothing and so resolves no device."""
+    _check_time_source(time_source)
     labels = tuple(f"L{s.idx}:{s.notation}" for s in model.specs)
     packed_host = [params_to(p, HOST) for p in packed_params]
-    packed_dev = [params_to(p, dev) for p in packed_params]
+    if time_source == "measured":
+        dev = resolve_device(device)
+        packed_dev = [params_to(p, dev) for p in packed_params]
     times: dict = {}
     kernel_times: dict = {}
     h2d_times: dict = {}
     d2h_times: dict = {}
     rng = np.random.default_rng(seed)
     for batch in batch_sizes:
-        x_words = _random_input(model, batch, rng)
-        layer_inputs = _capture_layer_inputs(model, packed_host, x_words)
-        rows = [
-            _measured_rows(
-                spec, ph, pd, configs, batch, x_in, dev, repeats,
-                DEFAULT_REGISTRY,
+        if time_source == "measured":
+            x_words = _random_input(model, batch, rng)
+            layer_inputs = _capture_layer_inputs(
+                model, packed_host, x_words
             )
-            for spec, ph, pd, x_in in zip(
-                model.specs, packed_host, packed_dev, layer_inputs
-            )
-        ]
+        rows = []
+        for i, (spec, ph) in enumerate(zip(model.specs, packed_host)):
+            candidates = tuple(candidates_fn(spec, ph, batch))
+            if time_source == "analytic":
+                rows.append(_analytic_rows(spec, candidates, batch, registry))
+            else:
+                rows.append(_measured_rows(
+                    spec, ph, packed_dev[i], candidates, batch,
+                    layer_inputs[i], dev, repeats, prune_factor, registry,
+                ))
         times[batch] = [r[0] for r in rows]
         kernel_times[batch] = [r[1] for r in rows]
         h2d_times[batch] = [r[2] for r in rows]
@@ -382,9 +478,97 @@ def profile_bnn_model(
     )
 
 
-def autotune_bnn_model(*args, **kwargs) -> ProfileTable:
-    """The registry-driven autotune sweep — not ported yet."""
-    raise NotImplementedError(_NOT_PORTED.format(what="autotune_bnn_model"))
+def profile_bnn_model(
+    model: BNNModel,
+    packed_params: list,
+    *,
+    batch_sizes: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128),
+    configs: Sequence[str] = CONFIGS,
+    repeats: int = 3,
+    seed: int = 0,
+    time_source: str = "measured",
+    device=None,
+) -> ProfileTable:
+    """The paper's fixed-space sweep: every layer is timed under the
+    same candidate list (default CPU + 7 aspect configs) at every batch
+    size, host configs on CPU tensors and device configs on `device`
+    (``None`` -> ``cuda``), or priced by the H100 model
+    (``time_source="analytic"``, no device needed)."""
+    configs = tuple(configs)
+    return _profile(
+        model,
+        packed_params,
+        lambda spec, packed, batch: configs,
+        batch_sizes=batch_sizes,
+        repeats=repeats,
+        seed=seed,
+        time_source=time_source,
+        prune_factor=None,
+        registry=DEFAULT_REGISTRY,
+        device=device,
+    )
+
+
+def autotune_bnn_model(
+    model: BNNModel,
+    packed_params: list,
+    *,
+    registry=None,
+    batch_sizes: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128),
+    repeats: int = 3,
+    seed: int = 0,
+    time_source: str = "measured",
+    prune_factor: float = 3.0,
+    platform: str | None = None,
+    device=None,
+) -> ProfileTable:
+    """Registry-driven autotune sweep with variable per-layer spaces.
+
+    GEMM layers are timed under the fixed-8 configs **plus** every
+    registered variant whose applicability predicate accepts the
+    layer's dispatch shape on `platform`; elementwise layers keep the
+    fixed 8 (only placement matters there).  Measured mode times on
+    `device` (``None`` -> ``cuda``) and prunes dominated extended
+    variants after a one-repeat warm-up (:func:`prune_survivors`); the
+    fixed 8 are always fully timed, so any mapping feasible in the
+    paper's space remains feasible in the autotuned table.
+
+    ``platform=None`` resolves to the measuring device's type in
+    measured mode (``"cuda"`` or ``"cpu"``) and to ``"cuda"`` in
+    analytic mode: the analytic sweep prices the card even on a host
+    without one.
+    """
+    _check_time_source(time_source)
+    reg = registry if registry is not None else DEFAULT_REGISTRY
+    if platform is None:
+        platform = (
+            "cuda" if time_source == "analytic"
+            else resolve_device(device).type
+        )
+
+    def candidates(spec, packed, batch):
+        shape = gemm_shape_of(spec, packed, batch)
+        if shape is None:
+            return CONFIGS
+        extra = tuple(
+            v.name
+            for v in reg.applicable(shape, platform)
+            if v.name not in CONFIGS
+        )
+        return CONFIGS + extra
+
+    return _profile(
+        model,
+        packed_params,
+        candidates,
+        batch_sizes=batch_sizes,
+        repeats=repeats,
+        seed=seed,
+        time_source=time_source,
+        prune_factor=prune_factor if time_source == "measured" else None,
+        registry=reg,
+        device=device,
+    )
 
 
 def profile_segment_variants(
@@ -408,39 +592,56 @@ def profile_segment_variants(
     For each ``(start, stop)`` span and batch size, every segment-scope
     registry variant whose applicability predicate accepts the span's
     :class:`~repro_torch.kernels.registry.SegmentShape` is timed on
-    `device` (``None`` -> ``cuda``).  Times are kernel-only seconds per
-    example: the segment's boundary transfers are unchanged by fusion
-    and stay priced by the per-layer h2d/d2h rows.  Spans must be
+    `device` (``None`` -> ``cuda``), or priced by the H100 model
+    (``time_source="analytic"``: ``"fused"`` variants by
+    ``cost_model.fused_segment_kernel_time_h100``; executes nothing, and
+    ``platform=None`` means ``"cuda"``).  Times are kernel-only seconds
+    per example: the segment's boundary transfers are unchanged by
+    fusion and stay priced by the per-layer h2d/d2h rows.  Spans must be
     device-resident layer runs — typically
     ``core.plan.device_spans(config)``.
     """
-    if time_source == "analytic":
-        raise NotImplementedError(_NOT_PORTED.format(what="analytic pricing"))
-    if time_source != "measured":
-        raise ValueError(f"unknown time_source {time_source!r}")
-    dev = resolve_device(device)
+    _check_time_source(time_source)
+    measured = time_source == "measured"
     reg = registry if registry is not None else DEFAULT_REGISTRY
     if batch_sizes is None:
         batch_sizes = table.batch_sizes
     packed_host = [params_to(p, HOST) for p in packed_params]
-    packed_dev = [params_to(p, dev) for p in packed_params]
+    if measured:
+        dev = resolve_device(device)
+        packed_dev = [params_to(p, dev) for p in packed_params]
+    elif platform is None:
+        platform = "cuda"
     rng = np.random.default_rng(seed)
     for batch in batch_sizes:
         if batch not in table.batch_sizes:
             raise ValueError(
                 f"batch {batch} not profiled (have {table.batch_sizes})"
             )
-        x_words = _random_input(model, batch, rng)
-        layer_inputs = _capture_layer_inputs(model, packed_host, x_words)
+        if measured:
+            x_words = _random_input(model, batch, rng)
+            layer_inputs = _capture_layer_inputs(
+                model, packed_host, x_words
+            )
         for start, stop in spans:
             specs = tuple(model.specs[start:stop])
-            pp = packed_dev[start:stop]
-            shape = segment_shape_of(specs, pp, batch)
-            x_in = layer_inputs[start].to(dev)
+            shape = segment_shape_of(specs, packed_host[start:stop], batch)
+            if measured:
+                x_in = layer_inputs[start].to(dev)
             row = {}
             for v in reg.applicable_segments(shape, platform):
-                fn = v.builder(specs, pp)
-                row[v.name] = _timeit(lambda: fn(x_in), repeats, dev) / batch
+                if not measured:
+                    if v.analytic != "fused":
+                        raise ValueError(
+                            f"segment variant {v.name!r}: the H100 model "
+                            f"prices only 'fused' segments, not "
+                            f"{v.analytic!r}"
+                        )
+                    t = cm.fused_segment_kernel_time_h100(specs, batch)
+                else:
+                    fn = v.builder(specs, packed_dev[start:stop])
+                    t = _timeit(lambda: fn(x_in), repeats, dev)
+                row[v.name] = t / batch
             if row:
                 table.add_segment_row(batch, start, stop, row)
     return table

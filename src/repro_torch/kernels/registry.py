@@ -21,8 +21,17 @@ by either package loads in the other:
 * ``X`` ... ``XYZ`` — the CUDA xnor GEMM (``xnor_gemm_cuda``) launched
   with those aspects as grid dimensions;
 
-plus one segment-scope variant, ``seg_cuda`` — a whole device segment
-as one launch of the fused CUDA kernel (``segment_cuda``).
+plus the port's kernel-1 tile variants ``cuda_p16n64``, ``cuda_p32n64``
+and ``cuda_p64n32`` — ``xnor_gemm_cuda`` with aspects XYZ under that
+``p_blk`` x ``n_blk`` tile, the autotune sweep's extension of the space
+(the counterpart of the JAX package's ``pallas_p{p}n{n}``; its 128-wide
+tiles exceed the CUDA kernel's 64-wide block tile) — and one
+segment-scope variant, ``seg_cuda`` — a whole device segment as one
+launch of the fused CUDA kernel (``segment_cuda``).
+
+The JAX package's ``xla_fused`` and ``seg_xla`` are XLA compositions of
+the plain version; the port has no counterpart (with a card present the
+plain version serves nothing), so they stay reference-only.
 """
 
 from __future__ import annotations
@@ -39,11 +48,23 @@ from repro_torch.kernels.segment_fused import (
     segment_gemm_work,
     segment_weight_bytes,
 )
-from repro_torch.kernels.xnor_popcount import xnor_gemm_cuda
+from repro_torch.kernels.xnor_popcount import (
+    N_BLK,
+    P_BLK,
+    _fit_tile,
+    xnor_gemm_cuda,
+)
 
 HOST = "host"
 DEVICE = "device"
 ASPECT_NAMES = ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")
+# kernel 1's tile variants (p_blk windows, n_blk neurons a block); 64 x 64
+# is the fixed XYZ launch itself
+TILE_VARIANTS = ((16, 64), (32, 64), (64, 32))
+ASPECTS_XYZ = ("X", "Y", "Z")
+# the most word-level MACs a tile variant is timed at on CPU tensors,
+# where xnor_gemm_cuda computes its plain version
+PLAIN_MAX_WORK = 1 << 22
 
 # variant scopes: a "layer" variant implements one packed xnor-GEMM
 # dispatch (builder (a, w, k_true) -> out); a "segment" variant
@@ -119,9 +140,8 @@ class KernelVariant:
     placement: str = DEVICE      # HOST or DEVICE (mapper boundary model)
     scope: str = SCOPE_LAYER     # SCOPE_LAYER or SCOPE_SEGMENT
     # pricing metadata, the reference's fields and defaults: grid order
-    # from `aspects`, block sizes from p_blk/n_blk (None: the pricing
-    # model's own choice -- kernel 1 picks 64- or 16-row tiles per
-    # launch plan, so no single number is true for it), and `analytic`
+    # from `aspects`, block sizes from p_blk/n_blk (None: kernel 1's
+    # 64 x 64, ``core.cost_model.variant_analytics``), and `analytic`
     # the traffic model: "tiled" (loop-nest reuse), "fused" (one pass
     # over the operands) or "host" (CPU side).  The profile store's
     # registry hash reads all of them.
@@ -247,6 +267,22 @@ def host_xnor_gemm(a: torch.Tensor, w: torch.Tensor, k_true: int):
     return xnor_gemm_ref(a, w, k_true)
 
 
+def _tile_applicable(p_blk: int, n_blk: int) -> Callable:
+    """A tile variant applies where its fitted tiles launch differently
+    from XYZ's (on an FC layer, P = 1, a 16- and a 64-row tile are the
+    same launch), on the card at any size and on the CPU up to
+    ``PLAIN_MAX_WORK``."""
+
+    def applicable(shape: GemmShape, platform: str) -> bool:
+        own = (_fit_tile(p_blk, shape.p), _fit_tile(n_blk, shape.n))
+        xyz = (_fit_tile(P_BLK, shape.p), _fit_tile(N_BLK, shape.n))
+        return own != xyz and (
+            platform == "cuda" or shape.work <= PLAIN_MAX_WORK
+        )
+
+    return applicable
+
+
 def _register_defaults(reg: VariantRegistry) -> VariantRegistry:
     reg.register(
         KernelVariant(
@@ -271,6 +307,22 @@ def _register_defaults(reg: VariantRegistry) -> VariantRegistry:
                 "the other aspects serial inside the block",
             )
         )
+    for p_blk, n_blk in TILE_VARIANTS:
+        reg.register(
+            KernelVariant(
+                name=f"cuda_p{p_blk}n{n_blk}",
+                builder=partial(xnor_gemm_cuda, aspects=ASPECTS_XYZ,
+                                p_blk=p_blk, n_blk=n_blk),
+                placement=DEVICE,
+                aspects=ASPECTS_XYZ,
+                p_blk=p_blk,
+                n_blk=n_blk,
+                analytic="tiled",
+                applicable=_tile_applicable(p_blk, n_blk),
+                description=f"CUDA xnor GEMM, XYZ, {p_blk} x {n_blk} "
+                "window/neuron tiles",
+            )
+        )
     reg.register(
         KernelVariant(
             name="seg_cuda",
@@ -287,7 +339,8 @@ def _register_defaults(reg: VariantRegistry) -> VariantRegistry:
     return reg
 
 
-#: The process-wide default registry (the paper's 8 + ``seg_cuda``).
+#: The process-wide default registry (the paper's 8, the tile variants,
+#: ``seg_cuda``).
 DEFAULT_REGISTRY = _register_defaults(VariantRegistry())
 
 

@@ -58,12 +58,16 @@ misread.  :meth:`ProfileStore.entries` / :meth:`~ProfileStore.stats` /
 :meth:`~ProfileStore.gc` / :meth:`~ProfileStore.export` inspect and
 maintain the same layout on any backend.
 
-**Estimator artifacts.**  The JAX package also keeps estimator
-training rows, a fitted latency predictor and a calibrated interference
-law beside the profiles.  The port has no estimator yet (ROADMAP queue
-1 item 9): :meth:`ProfileStore.get_or_profile` records no training
-rows, and the training-row, predictor and interference methods raise
-``NotImplementedError``.
+**Training rows.**  Every profile run additionally appends estimator
+training rows (``repro_torch.estimator.features``) under
+``training-r<registry>/rows-*.json`` — same envelope, additive kind
+``training_rows`` — so :class:`~repro_torch.estimator.LatencyPredictor`
+accumulates cross-model, cross-run data per (fingerprint, registry,
+scope) key (:meth:`ProfileStore.predictor`).  A *fitted* predictor and a
+calibrated interference law can be persisted beside the rows
+(:meth:`save_predictor` / :meth:`save_interference`) so the cache
+service's ``refit`` worker re-trains only when enough new rows
+accumulated since the last fit.
 """
 
 from __future__ import annotations
@@ -85,14 +89,6 @@ from repro_torch.core.profiler import ProfileTable
 from repro_torch.device import resolve_device
 
 SCHEMA_VERSION = 1
-
-
-
-def _estimator_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 9: the latency "
-        "estimator and the interference model)"
-    )
 
 
 def _digest(parts) -> str:
@@ -413,41 +409,168 @@ class ProfileStore:
             return table, True
         table = profile_fn(model, packed_params, batch_sizes=batch_sizes)
         self.save_profile(table)
-        # no estimator training rows are recorded: the estimator is not
-        # ported yet (ROADMAP queue 1 item 9)
+        self._record_training_rows(model, table)
         return table, False
 
-    # -- estimator artifacts (ROADMAP queue 1 item 9) ----------------
+    # -- estimator training data -------------------------------------
     def _training_key(self) -> str:
         return f"{self._base_key()}/training-r{self.space_hash}"
 
-    def _predictor_key(self) -> str:
-        """The fitted predictor's key (the refit job is keyed by it)."""
-        return f"{self._training_key()}/latency-predictor.json"
+    def training_dir(self) -> Path:
+        """Training rows live beside the per-model dirs, keyed by the
+        same (fingerprint, registry, scope) — rows measured under one
+        kernel space or platform never train a predictor for
+        another."""
+        return self._path_of(self._training_key())
 
-    def save_training_rows(self, rows, *, source: str | None = None):
-        raise _estimator_not_ported("estimator training rows")
+    def _record_training_rows(self, model, table) -> None:
+        """Every real profile run feeds the estimator's training set —
+        best-effort: extraction failure must never fail the profiling
+        path that produced the table."""
+        try:
+            from repro_torch.estimator.features import training_rows_from_table
+
+            rows = training_rows_from_table(
+                model, table, registry=self._registry
+            )
+            if rows:
+                # keyed by signature + batch sweep, not model name:
+                # width variants of one family share a name, and each
+                # sweep's rows must accumulate, not overwrite
+                sig = signature_from_labels(
+                    table.model_name, table.layer_labels
+                )
+                self.save_training_rows(
+                    rows,
+                    source=(
+                        f"profile:{sig}"
+                        f"-b{_batch_key(table.batch_sizes)}"
+                    ),
+                )
+        except Exception:
+            pass
+
+    def save_training_rows(self, rows, *, source: str | None = None) -> Path:
+        """Persist one batch of estimator training rows
+        (``repro_torch.estimator.features.training_rows_from_table``) as a
+        keyed envelope.  One document per (models, batches) source;
+        re-profiling the same sweep overwrites rather than
+        duplicates."""
+        rows = list(rows)
+        if not rows:
+            raise ValueError("no training rows to save")
+        models = sorted({r.get("model", "?") for r in rows})
+        if source is None:
+            source = _digest(
+                sorted(
+                    (r.get("model", "?"), r.get("batch", 0))
+                    for r in rows
+                )
+            )
+        doc = self._envelope(
+            "training_rows",
+            {
+                "source": source,
+                "models": models,
+                "n_rows": len(rows),
+            },
+            {"rows": rows},
+        )
+        return self._put(
+            f"{self._training_key()}/rows-{_digest([source])}.json", doc
+        )
 
     def load_training_rows(self) -> list:
-        raise _estimator_not_ported("estimator training rows")
+        """Every training row stored under this handle's key, across
+        all saved batches — the estimator's training set."""
+        rows: list = []
+        prefix = self._training_key() + "/"
+        for store_key in self.backend.list(prefix):
+            name = store_key[len(prefix):]
+            if not (name.startswith("rows-") and name.endswith(".json")):
+                continue
+            doc = self._open(store_key, "training_rows")
+            if doc is None:
+                continue
+            rows.extend(doc["payload"].get("rows", ()))
+        return rows
 
     def predictor(self, **kwargs):
-        raise _estimator_not_ported("the latency predictor")
+        """A :class:`~repro_torch.estimator.LatencyPredictor` fitted on the
+        accumulated training rows, or ``None`` when the store has no
+        rows yet — callers fall back to a real profiling pass (and
+        thereby create the first rows)."""
+        from repro_torch.estimator.latency import LatencyPredictor
 
-    def save_predictor(self, predictor, *, source_rows: int):
-        raise _estimator_not_ported("the latency predictor")
+        rows = self.load_training_rows()
+        if not rows:
+            return None
+        return LatencyPredictor(**kwargs).fit(rows)
+
+    # -- fitted estimator artifacts (cachesvc refit worker) ----------
+    def _predictor_key(self) -> str:
+        return f"{self._training_key()}/latency-predictor.json"
+
+    def save_predictor(self, predictor, *, source_rows: int) -> Path:
+        """Persist a *fitted* predictor with the training-set size it
+        was fitted on, so the refit worker can tell when enough new
+        rows accumulated to justify retraining."""
+        doc = self._envelope(
+            "latency_predictor",
+            {
+                "n_rows": int(getattr(predictor, "n_rows", 0)),
+                "source_rows": int(source_rows),
+            },
+            json.loads(predictor.to_json()),
+        )
+        return self._put(self._predictor_key(), doc)
 
     def load_predictor(self):
-        raise _estimator_not_ported("the latency predictor")
+        """The persisted fitted predictor, or None."""
+        from repro_torch.estimator.latency import LatencyPredictor
+
+        doc = self._open(self._predictor_key(), "latency_predictor")
+        if doc is None:
+            return None
+        return LatencyPredictor.from_json(json.dumps(doc["payload"]))
 
     def predictor_meta(self) -> dict | None:
-        raise _estimator_not_ported("the latency predictor")
+        """{'n_rows', 'source_rows', 'saved_at'} of the persisted
+        predictor (counter-silent), or None when never fitted."""
+        text = self.backend.peek(self._predictor_key())
+        if text is None:
+            return None
+        doc = json.loads(text)
+        if doc.get("kind") != "latency_predictor":
+            return None
+        key = doc.get("key", {})
+        return {
+            "n_rows": int(key.get("n_rows", 0)),
+            "source_rows": int(key.get("source_rows", 0)),
+            "saved_at": float(doc.get("saved_at", 0.0)),
+        }
 
-    def save_interference(self, law):
-        raise _estimator_not_ported("the interference model")
+    def _interference_key(self) -> str:
+        return f"{self._training_key()}/interference-law.json"
+
+    def save_interference(self, law) -> Path:
+        """Persist a calibrated contention law
+        (:class:`~repro_torch.estimator.interference.FittedInterference`)."""
+        doc = self._envelope(
+            "interference_law",
+            {"n_obs": int(getattr(law, "n_obs", 0))},
+            json.loads(law.to_json()),
+        )
+        return self._put(self._interference_key(), doc)
 
     def load_interference(self):
-        raise _estimator_not_ported("the interference model")
+        """The persisted contention law, or None."""
+        from repro_torch.estimator.interference import FittedInterference
+
+        doc = self._open(self._interference_key(), "interference_law")
+        if doc is None:
+            return None
+        return FittedInterference.from_json(json.dumps(doc["payload"]))
 
     # -- mappings ----------------------------------------------------
     def save_mapping(self, config: EfficientConfiguration) -> Path:

@@ -7,8 +7,8 @@ virtual time (equal journals), and the job bodies and the service on
 the same tables (equal result dicts).  Every test that starts a
 ``WorkerPool`` or a periodic flush stops it in a ``finally`` with a
 join timeout.  Mirrors ``tests/test_cachesvc_backends.py`` and the
-cases of ``tests/test_cachesvc.py`` that need neither the estimator
-nor ``repro.api`` (those wait for ROADMAP queue 1 items 9 and 10)."""
+cases of ``tests/test_cachesvc.py`` that need no ``repro.api`` (those
+wait for ROADMAP queue 1 item 10), refit passes included."""
 
 from __future__ import annotations
 
@@ -24,9 +24,16 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
-from fixtures import FakeClock, flat_table  # noqa: E402
+from fixtures import (  # noqa: E402
+    FakeClock,
+    flat_table,
+    loglinear_table,
+    planted_gamma_ledger,
+    synthetic_model,
+)
 
 from repro import cachesvc as R_C  # noqa: E402
+from repro import estimator as R_E  # noqa: E402
 from repro import store as R_S  # noqa: E402
 from repro.bnn import models as R_M  # noqa: E402
 from repro.cachesvc import jobs as R_J  # noqa: E402
@@ -785,10 +792,46 @@ def test_prewarm_once_is_idempotent_and_equal_to_reference(tmp_path):
     assert results[0] == results[1]
 
 
-def test_refit_once_waits_for_the_estimator(tmp_path):
-    store = T_S.ProfileStore(tmp_path, fingerprint="fp")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T_J.refit_once(store, min_new_rows=1)
+def _refit_stores(tmp_path, model):
+    """A port and a reference store holding the same training rows (one
+    profiled sweep of `model`), same fingerprint and registry rows."""
+    port = T_S.ProfileStore(tmp_path / "port", fingerprint="fp")
+    ref = R_S.ProfileStore(tmp_path / "ref", fingerprint="fp",
+                           registry=_same_rows_registry())
+    rows = R_E.training_rows_from_table(model, loglinear_table(model))
+    for store in (port, ref):
+        store.save_training_rows(rows, source="sweep")
+    return port, ref, len(rows)
+
+
+@pytest.mark.parametrize("min_new", [1, 8, 10**6])
+def test_refit_once_equal_to_reference_and_thresholds(tmp_path, min_new):
+    m = synthetic_model("refit")
+    port, ref, n = _refit_stores(tmp_path, m)
+    for _ in range(2):             # the second pass: no new rows
+        got = T_J.refit_once(port, min_new_rows=min_new)
+        want = R_J.refit_once(ref, min_new_rows=min_new)
+        assert got == want
+    first = n >= min_new
+    assert got["new_rows"] == (0 if first else n)
+    assert (port.load_predictor() is not None) == first
+    if first:
+        assert port.predictor_meta()["source_rows"] == n
+        assert port.load_predictor().to_json() == (
+            ref.load_predictor().to_json())
+
+
+@pytest.mark.parametrize("gamma", [0.3, 0.8])
+def test_refit_once_fits_interference_equal_to_reference(tmp_path, gamma):
+    ledger, expected = planted_gamma_ledger(gamma)
+    port = T_S.ProfileStore(tmp_path / "port", fingerprint="fp")
+    ref = R_S.ProfileStore(tmp_path / "ref", fingerprint="fp")
+    got = T_J.refit_once(port, observations=(ledger, expected))
+    want = R_J.refit_once(ref, observations=(ledger, expected))
+    assert got == want and got["interference"] is True
+    assert got["gamma"] == pytest.approx(gamma, abs=1e-9)
+    assert port.load_interference().to_json() == (
+        ref.load_interference().to_json())
 
 
 def test_explore_corrects_planted_stale_row(tmp_path):
@@ -935,16 +978,25 @@ def test_service_popularity_ranks_by_store_access(tmp_path):
 
 
 def test_service_refit_is_journaled_as_failed_and_guards(tmp_path):
-    """The refit job reaches the not-ported estimator: the queue retries
-    it and journals the failure, never hides it."""
+    """A queued refit fits and persists a predictor on the rows the
+    prewarm recorded; it is journaled done (never a failed job), deduped
+    while queued, and the service's guards still refuse a model without
+    a profiler or a measurement function."""
     svc, _ = _service(tmp_path, max_attempts=2)
+    svc.enqueue_prewarm("small")
+    svc.run_pending()                        # records training rows
+    n_rows = len(svc.store.load_training_rows())
+    assert n_rows > 0
+    svc.refit_min_new_rows = 1
     assert svc.enqueue_refit() is True
     assert svc.enqueue_refit() is False
-    assert svc.drain(sleep=svc.queue.clock.advance) == 2
+    assert svc.drain(sleep=svc.queue.clock.advance) == 1
     rec = svc.journal[-1]
-    assert rec.kind == "refit" and rec.status == "failed"
-    assert rec.attempts == 2 and "NotImplementedError" in rec.error
-    assert "item 9" in rec.error
+    assert rec.kind == "refit" and rec.status == "done"
+    assert rec.attempts == 1 and not rec.error
+    assert rec.result["refit"] is True and rec.result["rows"] == n_rows
+    assert svc.store.predictor_meta()["source_rows"] == n_rows
+    assert svc.store.load_predictor().n_rows == rec.result["n_rows"]
     model, packed = svc._catalog["small"]
     bare = T_C.CacheService(T_S.ProfileStore(tmp_path / "bare",
                                              fingerprint="fp"))

@@ -262,19 +262,126 @@ def test_measured_segment_rows_and_fuse_mapping(small):
     assert fused.layer_configs == ec.layer_configs
 
 
-@pytest.mark.parametrize("what", ["analytic", "autotune", "segments"])
-def test_unported_time_sources_raise(small, what):
+def test_measured_autotune_on_cpu_tensors(small):
+    """The reference's measured-autotune invariants on CPU tensors: the
+    fixed 8 in every row and never pruned, elementwise rows exactly the
+    fixed 8, tile variants where they apply, autotuned DP <= fixed-8."""
+    m, _, packed, _ = small
+    table = T_prof.autotune_bnn_model(m, packed, batch_sizes=(1,),
+                                      repeats=1, device="cpu")
+    assert table.provenance == "measured"
+    extended = set()
+    for b in (1,):
+        for i, spec in enumerate(m.specs):
+            row = table.configs_for(b, i)
+            assert row[:len(CONFIGS)] == CONFIGS
+            if spec.kind in ("conv", "fc"):
+                extended |= set(row[len(CONFIGS):])
+            else:
+                assert row == CONFIGS
+            for c in row:
+                assert table.kernel_time(b, i, c) > 0
+    assert extended and extended <= {"cuda_p16n64", "cuda_p32n64",
+                                     "cuda_p64n32"}
+    for policy in POLICIES:
+        full = T_map.map_efficient_configuration(table, policy=policy)
+        fixed = T_map.map_efficient_configuration(table, policy=policy,
+                                                  configs=CONFIGS)
+        assert full.expected_time_per_example <= (
+            fixed.expected_time_per_example)
+
+
+def test_measured_autotune_prunes_only_extended_variants(small):
+    m, _, packed, _ = small
+    table = T_prof.autotune_bnn_model(m, packed, batch_sizes=(1,),
+                                      repeats=1, prune_factor=1e-9,
+                                      device="cpu")
+    for i in range(len(m.specs)):
+        assert table.configs_for(1, i) == CONFIGS
+
+
+@pytest.mark.parametrize("time_source", ["analytic", "measured"])
+def test_autotune_platform_follows_the_time_source(small, time_source):
+    """Analytic mode prices the card (tile variants at every size);
+    measured mode on CPU tensors gates them by the plain version's
+    work cap."""
+    m, _, packed, _ = small
+    big = T_M.build_model("fashion_mnist")
+    bp = T_M.pack_params(big.specs, T_M.random_fp_params(big.specs, 0),
+                         device="cpu")
+    if time_source == "analytic":
+        t = T_prof.autotune_bnn_model(big, bp, batch_sizes=(16,),
+                                      time_source="analytic")
+        assert "cuda_p16n64" in t.configs_for(16, 0)
+    else:
+        shape = T_prof.gemm_shape_of(big.specs[0], bp[0], 16)
+        from repro_torch.kernels.registry import DEFAULT_REGISTRY
+
+        assert not DEFAULT_REGISTRY.get("cuda_p16n64").applies_to(
+            shape, "cpu")
+        assert DEFAULT_REGISTRY.get("cuda_p16n64").applies_to(shape, "cuda")
+
+
+def test_analytic_segment_rows_and_fuse_mapping(small):
+    m, _, packed, _ = small
+    table = T_prof.profile_bnn_model(m, packed, batch_sizes=(1, 2),
+                                     time_source="analytic")
+    assert table.provenance == "analytic"
+    ec = T_map.map_efficient_configuration(table, policy="dp")
+    fused = T_plan.fuse_mapping(m, packed, table, ec,
+                                time_source="analytic")
+    b = ec.proper_batch_size
+    for s, e in T_plan.device_spans(ec):
+        t = table.segment_time(b, s, e, "seg_cuda")
+        assert t == T_cm.fused_segment_kernel_time_h100(m.specs[s:e], b) / b
+        assert t <= sum(ec.per_layer_kernel_times[s:e])
+    assert T_plan.build_plan(fused).expected_time_per_example <= (
+        T_plan.build_plan(ec).expected_time_per_example)
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_baselines_and_placement_shares_equal_reference(name):
+    ref = TABLES[name]
+    port = _port(ref)
+    for b in ref.batch_sizes:
+        for cfg in CONFIGS:
+            assert T_map.uniform_total(port, cfg, b) == (
+                R_map.uniform_total(ref, cfg, b))
+    for cfg in CONFIGS:
+        assert T_map.best_uniform(port, cfg) == R_map.best_uniform(ref, cfg)
+    for policy in POLICIES:
+        got = T_map.map_efficient_configuration(port, policy=policy)
+        want = R_map.map_efficient_configuration(ref, policy=policy)
+        assert got.placement_shares() == want.placement_shares()
+        h, d = got.placement_shares()
+        assert h + d == pytest.approx(1.0) or (h, d) == (0.0, 0.0)
+    with pytest.raises(ValueError):
+        T_map.uniform_total(port, "nope", ref.batch_sizes[0])
+
+
+def test_deprecated_shims_warn_once_per_site_and_delegate(small):
+    from repro_torch import _compat
+
     m, _, packed, table = small
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        if what == "analytic":
-            T_prof.profile_bnn_model(m, packed, time_source="analytic",
-                                     device="cpu")
-        elif what == "autotune":
-            T_prof.autotune_bnn_model(m, packed)
-        else:
-            T_prof.profile_segment_variants(
-                m, packed, table, spans=((0, 2),), time_source="analytic",
-                device="cpu")
+    table = T_prof.ProfileTable.from_json(table.to_json())
+    mapping = ("XYZ",) * len(m.specs)
+    _compat.reset_warned()
+    with pytest.warns(DeprecationWarning, match="price_mapping"):
+        got = T_map.configuration_from_mapping(table, 2, mapping)
+    assert got.to_json() == T_map.price_mapping(table, 2, mapping).to_json()
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            T_map.configuration_from_mapping(table, 2, mapping)
+    assert len(seen) == 1
+    with pytest.warns(DeprecationWarning, match="fuse_mapping"):
+        fused = T_plan.fuse_configuration(m, packed, table, got,
+                                          time_source="analytic")
+    assert fused.fused_segments == T_plan.fuse_mapping(
+        m, packed, table, got, time_source="analytic").fused_segments
+    _compat.reset_warned()
 
 
 # ---------------------------------------------------------------------------
@@ -345,3 +452,25 @@ def test_layer_scope_variant_as_fused_is_rejected():
                                                   1e-9),))
     with pytest.raises(ValueError, match="scope"):
         build_node_fns(m, packed, ec, T_plan.build_plan(ec), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["cifar10", "fashion_mnist"])
+def test_autotuned_mapping_serves_bit_exact_vs_reference(arch):
+    """An autotuned (analytic) DP mapping, and one that puts a tile
+    variant on every GEMM layer, execute bit-exactly against the JAX
+    package's forward_packed on CPU tensors, fused and per layer."""
+    m, packed, x, want = _reference_output(arch)
+    table = T_prof.autotune_bnn_model(m, packed, batch_sizes=(2,),
+                                      time_source="analytic")
+    dp = T_map.map_efficient_configuration(table, policy="dp")
+    tiles = tuple(
+        next((c for c in table.configs_for(2, i) if c.startswith("cuda_p")),
+             "XYZ") if s.kind in ("conv", "fc") else "CPU"
+        for i, s in enumerate(m.specs))
+    assert any(c.startswith("cuda_p") for c in tiles)
+    forced = T_map.price_mapping(table, 2, tiles)
+    for ec in (dp, forced, T_plan.fuse_mapping(m, packed, table, dp,
+                                               time_source="analytic")):
+        for kw in ({"fused": True}, {"fused": False}):
+            f = build_mapped_model(m, packed, ec, device="cpu", **kw)
+            assert np.array_equal(f(x).numpy(), want), (ec.layer_configs, kw)

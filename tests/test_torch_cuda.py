@@ -98,6 +98,36 @@ def test_xnor_gemm_cuda_equals_plain(dev, aspects, tiles):
         assert torch.equal(got, xnor_gemm_ref(a, w, 32 * kw - 3))
 
 
+# every CIFAR-10 and Fashion-MNIST GEMM shape at full width (P windows,
+# N neurons, Kw words), and a ragged one
+PAPER_GEMM_SHAPES = (
+    (1024, 64, 9), (1024, 64, 18), (256, 256, 18), (256, 256, 72),
+    (64, 512, 72), (64, 512, 144), (1, 1024, 256), (1, 10, 32),
+    (784, 64, 9), (196, 64, 18), (1, 2048, 98), (1, 10, 64), (37, 21, 5),
+)
+
+
+@pytest.mark.parametrize("name", ["cuda_p16n64", "cuda_p32n64",
+                                  "cuda_p64n32"])
+@pytest.mark.parametrize("batch", [1, 16, 33])
+def test_tile_variants_equal_plain_at_paper_shapes(dev, name, batch):
+    """Each registered kernel-1 tile variant, through its registry
+    builder, launches the kernel once per call and equals the plain
+    xnor GEMM at every paper GEMM shape."""
+    from repro_torch.kernels.registry import DEFAULT_REGISTRY
+
+    build = DEFAULT_REGISTRY.get(name).builder
+    rng = np.random.default_rng(batch)
+    for p, n, kw in PAPER_GEMM_SHAPES:
+        a = torch.from_numpy(_words(rng, batch, p, kw)).to(dev)
+        w = torch.from_numpy(_words(rng, n, kw)).to(dev)
+        before = xnor_gemm_cuda.launches
+        got = build(a, w, 32 * kw - 5)
+        torch.cuda.synchronize()
+        assert xnor_gemm_cuda.launches == before + 1
+        assert torch.equal(got, xnor_gemm_ref(a, w, 32 * kw - 5)), (p, n, kw)
+
+
 @pytest.mark.parametrize("kw", [8, 72, 256])
 def test_xnor_gemm_cuda_unaligned_operands_take_4_byte_copies(dev, kw):
     """Operands one word off a 16-byte boundary: the plan falls back to

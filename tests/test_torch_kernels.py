@@ -284,9 +284,19 @@ def test_lowering_edge_cases():
 
 
 def test_registry_holds_the_fixed_8_and_seg_cuda_only():
-    assert DEFAULT_REGISTRY.names() == ("CPU",) + ASPECT_NAMES + ("seg_cuda",)
+    """The fixed 8, kernel 1's three tile variants and seg_cuda; none of
+    the JAX package's XLA or Pallas variants."""
+    tiles = ("cuda_p16n64", "cuda_p32n64", "cuda_p64n32")
+    assert DEFAULT_REGISTRY.names() == (
+        ("CPU",) + ASPECT_NAMES + tiles + ("seg_cuda",))
     for name in ("xla_fused", "pallas_p64n64", "seg_xla", "seg_pallas"):
         assert name not in DEFAULT_REGISTRY
+    for name in tiles:
+        v = DEFAULT_REGISTRY.get(name)
+        assert (v.placement, v.aspects, v.analytic) == (
+            "device", ("X", "Y", "Z"), "tiled")
+        assert f"cuda_p{v.p_blk}n{v.n_blk}" == name
+        assert v.builder.func is xnor_gemm_cuda
     assert DEFAULT_REGISTRY.placement_of("CPU") == "host"
     for name in ASPECT_NAMES:
         v = DEFAULT_REGISTRY.get(name)

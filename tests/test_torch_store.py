@@ -2,10 +2,12 @@
 package's: the same key algebra (model signatures, registry hashes,
 batch keys, fleet scopes), the same envelopes and layout (a root one
 package writes, the other reads), warm starts with zero profiling, and
-gc/export.  The hardware fingerprints differ by design, so the two
-packages' entries never collide.  Mirrors the cases of
-``tests/test_profile_store.py`` that need neither the estimator nor the
-reference's CLI (those wait for ROADMAP queue 1 item 9)."""
+gc/export, and the estimator's artifacts (training rows equal apart
+from the fixed 8's tile fields, predictors and interference laws read
+across packages).  The hardware fingerprints differ by design, so the
+two packages' entries never collide.  Mirrors the cases of
+``tests/test_profile_store.py`` and ``tests/test_estimator.py`` that
+need no reference CLI."""
 
 from __future__ import annotations
 
@@ -21,12 +23,16 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+import fixtures  # noqa: E402
+
+from repro import estimator as R_E  # noqa: E402
 from repro import store as R_S  # noqa: E402
 from repro.bnn import models as R_M  # noqa: E402
 from repro.core import mapper as R_MAP  # noqa: E402
 from repro.core.parallel_config import CONFIGS, CPU  # noqa: E402
 from repro.core.profiler import ProfileTable as R_Table  # noqa: E402
 from repro.kernels import registry as R_REG  # noqa: E402
+from repro_torch import estimator as T_E  # noqa: E402
 from repro_torch.bnn import models as T_M  # noqa: E402
 from repro_torch.core import mapper as T_MAP  # noqa: E402
 from repro_torch.core.mapper import EfficientConfiguration  # noqa: E402
@@ -203,7 +209,8 @@ def test_registry_hash_equal_for_equal_rows():
     assert {tags[a] for a in ("X", "Y", "Z", "XY", "XZ", "YZ", "XYZ")} == {
         "tiled"}
     assert all(v.p_blk is None and v.n_blk is None
-               for v in T_REG.DEFAULT_REGISTRY)
+               for v in T_REG.DEFAULT_REGISTRY if v.name in tags
+               and not v.name.startswith("cuda_p"))
     for field, value in (("p_blk", 64), ("n_blk", 16), ("analytic", "fused")):
         port = T_REG._register_defaults(T_REG.VariantRegistry())
         reg = _same_rows_registry()
@@ -392,19 +399,95 @@ def test_store_root_reads_across_packages(tmp_path):
             e.store_key for e in ref.entries())
 
 
-def test_estimator_artifacts_wait_for_the_estimator(tmp_path):
+def _without_tiles(rows):
+    """Training rows without the fixed 8's tile fields, which differ by
+    design (64 in the port, 128 in the JAX package)."""
+    return [{**r, "meta": {k: v for k, v in r["meta"].items()
+                           if k not in ("p_blk", "n_blk")}} for r in rows]
+
+
+def _fake_profiler(model, packed, *, batch_sizes):
+    return ProfileTable.from_json(
+        fixtures.loglinear_table(model, batch_sizes).to_json())
+
+
+def _ref_fake_profiler(model, packed, *, batch_sizes):
+    return fixtures.loglinear_table(model, batch_sizes)
+
+
+def test_get_or_profile_records_training_rows_like_the_reference(tmp_path):
+    """Both packages record one training-row document per profiled
+    sweep, under the same layout; the rows are equal apart from the
+    stated tile fields, and a warm start records none."""
+    m = fixtures.synthetic_model("fed", conv_units=(24, 48),
+                                 fc_units=(64, 10))
+    port = ProfileStore(tmp_path / "port", fingerprint="fp")
+    ref = R_S.ProfileStore(tmp_path / "ref", fingerprint="fp",
+                           registry=_same_rows_registry())
+    port.get_or_profile(m, None, _fake_profiler, batch_sizes=(1, 4))
+    ref.get_or_profile(m, None, _ref_fake_profiler, batch_sizes=(1, 4))
+    rows = port.load_training_rows()
+    assert len(rows) == 2 * len(m.specs) * len(CONFIGS)
+    assert _without_tiles(rows) == _without_tiles(ref.load_training_rows())
+    assert {r["meta"]["p_blk"] for r in rows} == {64}
+    assert sorted(k for k in port.backend.list() if "training-" in k) == (
+        sorted(k for k in ref.backend.list() if "training-" in k))
+    _, loaded = port.get_or_profile(m, None, _fake_profiler,
+                                    batch_sizes=(1, 4))
+    assert loaded and len(port.load_training_rows()) == len(rows)
+
+
+def test_training_rows_predictor_and_law_round_trip(tmp_path):
     store = ProfileStore(tmp_path, fingerprint="fp")
-    store.get_or_profile(MODEL, None, lambda m, p, *, batch_sizes: _table(
-        m.name, batch_sizes, LABELS), batch_sizes=(4,))
-    assert not any("training-" in k for k in store.backend.list())
-    for call in (lambda: store.save_training_rows([{"model": "m"}]),
-                 store.load_training_rows, store.predictor,
-                 lambda: store.save_predictor(None, source_rows=0),
-                 store.load_predictor, store.predictor_meta,
-                 lambda: store.save_interference(None),
-                 store.load_interference):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    assert store.load_training_rows() == [] and store.predictor() is None
+    assert store.predictor_meta() is None and store.load_predictor() is None
+    assert store.load_interference() is None
+    m = fixtures.synthetic_model("s")
+    table = ProfileTable.from_json(fixtures.loglinear_table(m).to_json())
+    rows = T_E.training_rows_from_table(m, table)
+    store.save_training_rows(rows)
+    assert store.load_training_rows() == rows
+    m2 = fixtures.synthetic_model("s2", conv_units=(16,))
+    rows2 = T_E.training_rows_from_table(m2, ProfileTable.from_json(
+        fixtures.loglinear_table(m2).to_json()))
+    store.save_training_rows(rows2)
+    store.save_training_rows(rows)            # same source: overwrites
+    assert len(store.load_training_rows()) == len(rows) + len(rows2)
+    with pytest.raises(ValueError):
+        store.save_training_rows([])
+    assert ProfileStore(tmp_path, fingerprint="other").load_training_rows() \
+        == []
+    pred = store.predictor()
+    assert pred.to_json() == R_E.LatencyPredictor().fit(
+        store.load_training_rows()).to_json()
+    store.save_predictor(pred, source_rows=len(rows) + len(rows2))
+    meta = store.predictor_meta()
+    assert (meta["n_rows"], meta["source_rows"]) == (pred.n_rows,
+                                                     len(rows) + len(rows2))
+    assert store.load_predictor().to_json() == pred.to_json()
+    law = T_E.FittedInterference(gamma=0.4, knots=((0.5, 1.1), (1.0, 1.5)),
+                                 n_obs=9)
+    store.save_interference(law)
+    assert store.load_interference() == law
+
+
+def test_estimator_artifacts_read_across_packages(tmp_path):
+    """Same fingerprint and registry rows: a predictor and a law saved by
+    one package load in the other."""
+    port = ProfileStore(tmp_path, fingerprint="fp")
+    ref = R_S.ProfileStore(tmp_path, fingerprint="fp",
+                           registry=_same_rows_registry())
+    m = fixtures.synthetic_model("x")
+    rows = R_E.training_rows_from_table(m, fixtures.loglinear_table(m))
+    ref.save_training_rows(rows)
+    assert port.load_training_rows() == rows
+    pred = port.predictor()
+    port.save_predictor(pred, source_rows=len(rows))
+    assert ref.load_predictor().to_json() == pred.to_json()
+    assert ref.predictor_meta()["n_rows"] == port.predictor_meta()["n_rows"]
+    law = R_E.FittedInterference(gamma=0.9)
+    ref.save_interference(law)
+    assert port.load_interference().to_json() == law.to_json()
 
 
 # ---------------------------------------------------------------------------
