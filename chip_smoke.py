@@ -108,7 +108,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows at B 1 and 16, per layer and per kind.  A ``LatencyPredictor``
    fitted on the stored training rows at B 1 and 4, its error at B 16;
    a refit job through a ``CacheService`` on the phase 8 store must
-   persist a predictor whose metadata names the stored row count.
+   persist a predictor whose metadata names the stored row count;
+12. co-serving (``fleet_phase``): full-width CIFAR-10 (phase 5's
+   weights) and Fashion-MNIST (NumPy seed 1), each request drawn from a
+   pool of 32 inputs per (model, level) whose plain CPU outputs are
+   computed once.  ``[fleet]``: the profiles at (1, 4, 16) through the
+   phase 8 store (CIFAR-10's must be a warm start), ``map_fleet`` at B
+   16, gamma 1.0 (each tenant's mapping, shares, inflations and
+   inflated us per example; joint makespan must be <= the all-GPU
+   baseline), then 64 requests per tenant through a ``FleetRouter`` with
+   a ``DeviceTimeLedger`` under the joint plan and under
+   ``map_all_device``: the drain wall of each, the ledger's shares beside
+   the predicted ones, and the observations ``InterferenceFit.add_ledger``
+   harvests from the port's ledger.  ``[elastic]``: a CIFAR-10
+   ``SubnetFamily`` at fractions (1.0, 0.5), ``plan_family`` (B 16,
+   fused) through the store, an ``ElasticEngine`` switching levels 0 ->
+   1 -> 0 with 32 requests each (each level's p50, predicted us per
+   example and the bytes it shares with level 0 or copies), then the
+   same engine behind a ``FleetRouter`` with a ``QualityController``
+   (``degrade_after=2``), deadline 1.5x level 0's step, bursts of 64:
+   the journal must hold a ``degrade``.  ``[cluster]``: the ``api``
+   facade serving one model and two models on one host, then two
+   models on two logical hosts (``consistent_hash``, the phase 8 store
+   shared): 64 keyed requests per tenant, a ``scale_up`` that must
+   warm-start from the store (``cache_hits >= 1``), a ``start_drain``
+   of a host with queued requests that must migrate some, and
+   ``cluster.stats()``.  Every answer, migrated or not, must equal the
+   plain CPU ``forward_packed`` of the level that served it; both BNN
+   kernels must launch during the phase.  The logical hosts share the
+   one card and the one CPU.
 
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
@@ -120,8 +148,9 @@ after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
 launch once per layer of the prefill, 24 times), phases 5-6 up to
 phase 6's untraced serving (both BNN kernels must have launched while
 serving), phase 9's adaptive serving (``segment_cuda``), phase 10's
-explore job (``xnor_gemm_cuda``) and phase 11's autotune sweep and
-serving (``xnor_gemm_cuda``).  The last
+explore job (``xnor_gemm_cuda``), phase 11's autotune sweep and
+serving (``xnor_gemm_cuda``) and phase 12 (``xnor_gemm_cuda`` and
+``segment_cuda``).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -208,6 +237,15 @@ FLASH_CASES = tuple(
     ("Sq 1 / Sk 2048", 4, 14, 2, 1, 2048, 64, "bfloat16", True),
     ("Sq 1 / Sk 2048 f32", 4, 14, 2, 1, 2048, 64, "float32", True),
 )
+# co-serving (phase 12): the batch the fleet is mapped and served at,
+# requests per tenant under each fleet mapping, the width levels of the
+# elastic family, and the quality bursts (requests, rounds; the deadline
+# is this many times level 0's expected step)
+FLEET_BATCH = 16
+FLEET_REQUESTS = 64
+ELASTIC_FRACTIONS = (1.0, 0.5)
+QUALITY_BURST, QUALITY_ROUNDS, QUALITY_DEADLINE = 64, 4, 1.5
+
 # adaptive serving (phase 9): requests per burst, calibration stops after
 # this many steps without a new journal entry (at most CALIBRATE_MAX
 # steps), the contended remap must follow within CONTEND_MAX steps, the
@@ -514,6 +552,350 @@ def busy_wait(seconds: float) -> None:
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+
+def at_batch(table, batch: int):
+    """`table`'s measured rows at one batch size, as a table of its own:
+    the store entry a plan over ``(batch,)`` warm-starts from."""
+    from repro_torch.core.profiler import ProfileTable
+
+    def rows(d):
+        return None if d is None else {batch: d[batch]}
+
+    return ProfileTable(
+        table.model_name, (batch,), table.layer_labels, rows(table.times),
+        kernel_times=rows(table.kernel_times), h2d_times=rows(table.h2d_times),
+        d2h_times=rows(table.d2h_times), provenance=table.provenance)
+
+
+def mapping_line(config) -> str:
+    return " ".join(f"{lab.split(':')[1]}={c}" for lab, c in
+                    zip(config.layer_labels, config.layer_configs))
+
+
+def fleet_phase(dev, model, packed, x_req, expected, store_root) -> tuple:
+    """Phase 12: co-serve full-width CIFAR-10 (`model`, `packed`: phase
+    5's) and Fashion-MNIST (NumPy seed 1) on the card: the joint mapping
+    against all-GPU, an elastic CIFAR-10 family behind a quality
+    controller, and the ``api`` facade at one and two logical hosts.
+    Every answer is held to the plain CPU ``forward_packed`` of the
+    level that served it.  Returns (launch counts, seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.bnn.models import (
+        build_model, forward_packed, pack_params, params_to,
+        prepare_input_packed, random_fp_params,
+    )
+    from repro_torch.core import price_mapping, profile_bnn_model
+    from repro_torch.device import HOST
+    from repro_torch.elastic import (
+        ElasticEngine, ElasticSpec, SubnetFamily, plan_family,
+    )
+    from repro_torch.estimator import InterferenceFit
+    from repro_torch.fleet import (
+        DeviceTimeLedger, FleetRouter, QualityController, map_all_device,
+        map_fleet,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServingEngine
+    from repro_torch.store import ProfileStore
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    store = ProfileStore(f"dir://{store_root}", device=dev)
+
+    def measured(m, p, *, batch_sizes):
+        return profile_bnn_model(m, p, batch_sizes=batch_sizes, device=dev)
+
+    def plain(m, p, x):
+        """The plain CPU forward of the request pool `x`, and its s."""
+        t0 = time.perf_counter()
+        out = forward_packed(m.specs, [params_to(q, HOST) for q in p], x)
+        return out.numpy(), time.perf_counter() - t0
+
+    def check(label, reqs, want, index=None):
+        """Request j answers pool entry ``index[j]`` (default j mod the
+        pool): every answer must equal the plain forward's."""
+        idx = np.arange(len(reqs)) if index is None else np.asarray(index)
+        got = np.stack([r.wait(timeout=600) for r in reqs])
+        if not np.array_equal(got, want[idx % len(want)]):
+            raise AssertionError(f"{label}: served answers differ from the "
+                                 f"plain CPU forward_packed")
+
+    def trace_step(label, step, submit):
+        """One traced `step` (`submit()` runs first, outside the trace):
+        the step's wall, the card's busy time and its idle share."""
+        wall, busy, by_name = traced(label, step, launch_counts,
+                                     prepare=submit)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"[{label}] one step under the profiler: wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%"
+            f"; by activity: " + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+
+    fm = build_model("fashion_mnist")
+    fm_packed = pack_params(fm.specs, random_fp_params(fm.specs, 1),
+                            device=dev)
+    fm_x = prepare_input_packed(torch.from_numpy(
+        np.random.default_rng(1).random(
+            (N_REQUESTS, *fm.input_hw, fm.in_channels), dtype=np.float32)))
+    fm_expected, fm_plain_s = plain(fm, fm_packed, fm_x)
+    models = {"cifar10": (model, packed), "fashion_mnist": (fm, fm_packed)}
+    names = tuple(models)
+    pools = {"cifar10": (x_req.numpy(), expected),
+             "fashion_mnist": (fm_x.numpy(), fm_expected)}
+    log(f"[fleet] plain CPU forward_packed of {N_REQUESTS} Fashion-MNIST "
+        f"examples: {fm_plain_s:.2f} s (CIFAR-10 level 0 reuses phase 5's)")
+
+    # -- joint mapping against all-GPU -----------------------------------
+    tables, took = {}, {}
+    for name, (m, p) in models.items():
+        t0 = time.perf_counter()
+        tables[name], loaded = store.get_or_profile(
+            m, p, measured, batch_sizes=PROFILE_BATCHES)
+        took[name] = time.perf_counter() - t0
+        if loaded != (name == "cifar10"):
+            raise AssertionError(f"{name}: loaded {loaded}; CIFAR-10 must "
+                                 "warm-start, Fashion-MNIST be profiled")
+    log(f"[fleet] profiles {PROFILE_BATCHES} through {store.backend.uri()}: "
+        f"cifar10 warm start {took['cifar10'] * 1e3:.3f} ms, fashion_mnist "
+        f"measured {took['fashion_mnist']:.2f} s")
+    plan = map_fleet([tables[n] for n in names], names=names,
+                     batch_sizes=(FLEET_BATCH,), gamma=1.0)
+    for tp in plan.tenants:
+        log(f"[fleet] joint {tp.name} B {tp.config.proper_batch_size}: "
+            f"{mapping_line(tp.config)}; shares host {tp.host_share:.4f} "
+            f"device {tp.device_share:.4f}; inflation host "
+            f"{tp.host_inflation:.4f} device {tp.device_inflation:.4f}; "
+            f"{tp.solo_expected_s * 1e6:.3f} us/example solo, "
+            f"{tp.inflated_expected_s * 1e6:.3f} inflated")
+    log(f"[fleet] joint makespan {plan.joint_makespan_s * 1e6:.3f} us against "
+        f"all-GPU {plan.baseline_makespan_s * 1e6:.3f} us "
+        f"({plan.vs_all_gpu:.4f}x), {plan.rounds} rounds, converged "
+        f"{plan.converged}")
+    if plan.joint_makespan_s > plan.baseline_makespan_s:
+        raise AssertionError("the joint mapping is priced worse than all-GPU")
+    joint = {tp.name: tp.config for tp in plan.tenants}
+    all_gpu = {n: map_all_device(tables[n], batch_sizes=(FLEET_BATCH,))
+               for n in names}
+    for n in names:
+        log(f"[fleet] all-GPU {n}: {mapping_line(all_gpu[n])}")
+
+    def co_serve(label, configs):
+        """FLEET_REQUESTS per tenant through one router + ledger, a
+        burst of FLEET_BATCH per tenant a dispatch round, after one
+        untimed round."""
+        ledger = DeviceTimeLedger()
+        router = FleetRouter(ledger=ledger)
+        for n in names:
+            m, p = models[n]
+            router.add_tenant(n, ServingEngine(
+                m, p, configs[n], allowed_batch_sizes=(FLEET_BATCH,),
+                observer=ledger.observer(n), device=dev))
+        warm = {n: [router.submit(n, pools[n][0][i])
+                    for i in range(FLEET_BATCH)] for n in names}
+        router.drain()
+        for n in names:
+            check(f"{label} {n} warm-up", warm[n], pools[n][1])
+        ledger.reset()
+        reqs = {n: [] for n in names}
+        t0 = time.perf_counter()
+        for lo in range(0, FLEET_REQUESTS, FLEET_BATCH):
+            for n in names:
+                reqs[n] += [router.submit(n, pools[n][0][i % N_REQUESTS])
+                            for i in range(lo, lo + FLEET_BATCH)]
+            router.step(force=True)
+        router.drain()
+        for n in names:
+            for r in reqs[n]:
+                r.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        for n in names:
+            check(f"{label} {n}", reqs[n], pools[n][1])
+        solo = {n: price_mapping(tables[n], FLEET_BATCH,
+                                 configs[n].layer_configs) for n in names}
+        shares = ledger.shares()
+        for n in names:
+            u = ledger.usage(n)
+            ph, pd = solo[n].placement_shares()
+            lat = np.array([r.latency_s for r in reqs[n]]) * 1e3
+            log(f"[fleet] {label} {n}: ledger host {shares[n][0]:.4f} device "
+                f"{shares[n][1]:.4f} (predicted {ph:.4f} / {pd:.4f}); "
+                f"{u.steps} steps, host {u.host_s * 1e3:.3f} ms, device "
+                f"{u.device_s * 1e3:.3f} ms; latency p50 "
+                f"{np.percentile(lat, 50):.3f} ms p99 "
+                f"{np.percentile(lat, 99):.3f} ms")
+        fit = InterferenceFit()
+        n_obs = fit.add_ledger(ledger, {
+            n: tuple(FLEET_BATCH * t for t in solo[n].stage_times())
+            for n in names})
+        obs = fit.observations()
+        log(f"[fleet] {label}: InterferenceFit.add_ledger harvested {n_obs} "
+            f"observations from the port's ledger: " + "; ".join(
+                f"{o.tenant} {o.placement} share {o.share:.3f} inflation "
+                f"{o.inflation:.3f}" for o in obs[:8])
+            + (f" ...; fitted gamma {fit.fit().gamma:.4f}" if obs else ""))
+        log(f"[fleet] {label}: {FLEET_REQUESTS} requests per tenant drained "
+            f"in {wall * 1e3:.3f} ms, every answer equal to the plain CPU "
+            f"forward_packed")
+        traced_reqs = {n: [] for n in names}
+
+        def submit_round():
+            for n in names:
+                traced_reqs[n] += [router.submit(n, pools[n][0][i])
+                                   for i in range(FLEET_BATCH)]
+
+        trace_step(f"trace fleet {label}", lambda: router.step(force=True),
+                   submit_round)
+        for n in names:
+            check(f"traced {label} {n}", traced_reqs[n], pools[n][1],
+                  np.arange(len(traced_reqs[n])) % FLEET_BATCH)
+        return wall
+
+    walls = {label: co_serve(label, configs) for label, configs in
+             (("joint", joint), ("all-GPU", all_gpu))}
+    log(f"[fleet] drain wall joint / all-GPU: {walls['joint'] * 1e3:.3f} / "
+        f"{walls['all-GPU'] * 1e3:.3f} ms = "
+        f"{walls['joint'] / walls['all-GPU']:.4f}x")
+
+    # -- elastic: nested widths on the card -------------------------------
+    t0 = time.perf_counter()
+    fam = SubnetFamily.build(model, packed,
+                             ElasticSpec(fractions=ELASTIC_FRACTIONS))
+    store.save_profile(at_batch(tables["cifar10"], FLEET_BATCH))
+    eplan = plan_family(fam, batch_sizes=(FLEET_BATCH,), store=store,
+                        fuse=True, device=dev)
+    log(f"[elastic] SubnetFamily {fam.names()} and plan_family "
+        f"(B {FLEET_BATCH}, fuse, level 0 warm from the store, level 1 "
+        f"measured): {time.perf_counter() - t0:.2f} s")
+    narrow = fam.level(1)
+    l1_expected, l1_plain_s = plain(narrow.model, narrow.packed, x_req)
+    level_out = (expected, l1_expected)
+    log(f"[elastic] plain CPU forward_packed of {N_REQUESTS} examples at "
+        f"level 1: {l1_plain_s:.2f} s")
+    engine = ElasticEngine(eplan, allowed_batch_sizes=(FLEET_BATCH,),
+                           device=dev)
+    engine.warm()
+    x_np = pools["cifar10"][0]
+    p50s: dict = {}
+    for k in (0, 1, 0):
+        if not engine.set_level(k):
+            raise AssertionError(f"level {k} did not apply at a boundary")
+        reqs = [engine.submit(x_np[i]) for i in range(N_REQUESTS)]
+        engine.step(force=True)
+        check(f"elastic level {k}", reqs, level_out[k])
+        p50s.setdefault(k, []).append(float(np.percentile(
+            [r.latency_s * 1e3 for r in reqs], 50)))
+    for k, lvl in enumerate(fam):
+        cfg = eplan.configs[k]
+        mem = fam.storage(k)
+        log(f"[elastic] level {k} {lvl.model.name} ({lvl.fraction}): "
+            f"{mapping_line(cfg)}; fused {[f[:3] for f in cfg.fused_segments]}"
+            f"; predicted {cfg.expected_time_per_example * 1e6:.3f} us/example"
+            f"; served p50 over {N_REQUESTS} requests "
+            + " / ".join(f"{v:.3f}" for v in p50s[k])
+            + f" ms; packed bytes shared with level 0 {mem['shared_bytes']}, "
+            f"copied {mem['copied_bytes']}")
+    for k in (0, 1):
+        engine.set_level(k)
+        traced_reqs = []
+        trace_step(f"trace elastic level {k}", lambda: engine.step(force=True),
+                   lambda: traced_reqs.extend(engine.submit(x_np[i])
+                                              for i in range(N_REQUESTS)))
+        check(f"traced elastic level {k}", traced_reqs, level_out[k])
+    engine.set_level(0)
+    log(f"[elastic] level 1 / level 0 p50: "
+        f"{p50s[1][0] / np.mean(p50s[0]):.4f}; every answer equal to its "
+        f"level's plain forward")
+
+    qc = QualityController(degrade_after=2)
+    router = FleetRouter(ledger=DeviceTimeLedger(), quality=qc)
+    step0 = eplan.configs[0].expected_time_per_example * FLEET_BATCH
+    router.add_tenant("cifar10", engine, deadline_s=QUALITY_DEADLINE * step0)
+    rounds = []
+    for _ in range(QUALITY_ROUNDS):
+        level = engine.level              # the level this round serves at
+        sent = [(i, router.submit("cifar10", x_np[i % N_REQUESTS]))
+                for i in range(QUALITY_BURST)]
+        router.step(force=True)
+        took_in = [(i, r) for i, r in sent if r is not None]
+        check(f"quality round at level {level}", [r for _, r in took_in],
+              level_out[level], [i for i, _ in took_in])
+        rounds.append((level, len(took_in)))
+    for rec in qc.journal:
+        log(f"[elastic] quality {dataclasses.asdict(rec)}")
+    log(f"[elastic] quality rounds (level, admitted of {QUALITY_BURST}): "
+        f"{rounds}; deadline {QUALITY_DEADLINE} x level 0's step "
+        f"{step0 * 1e3:.3f} ms; stats {router.stats()['cifar10']}")
+    if not any(rec.action == "degrade" for rec in qc.journal):
+        raise AssertionError("the quality controller never degraded")
+
+    # -- the api facade at three topologies -------------------------------
+    t0 = time.perf_counter()
+    store.save_profile(at_batch(tables["fashion_mnist"], FLEET_BATCH))
+    single = api.Deployment.plan((model, packed), batch_sizes=(FLEET_BATCH,),
+                                 store=store, device=dev).serve()
+    reqs = [single.submit(x_np[i]) for i in range(FLEET_BATCH)]
+    single.drain()
+    check("api single", reqs, expected)
+    fleet = api.Deployment.plan(models, batch_sizes=(FLEET_BATCH,),
+                                store=store, device=dev).serve()
+    reqs = {n: [fleet.submit(pools[n][0][i], tenant=n)
+                for i in range(FLEET_BATCH)] for n in names}
+    fleet.drain()
+    for n in names:
+        check(f"api fleet {n}", reqs[n], pools[n][1])
+    log(f"[cluster] Deployment hosts=1: single ({single.mode}) and two models "
+        f"({fleet.mode}) served {FLEET_BATCH} requests each, equal to the "
+        f"plain forward ({time.perf_counter() - t0:.2f} s)")
+    dep = api.Deployment.plan(models, hosts=2, batch_sizes=(FLEET_BATCH,),
+                              routing="consistent_hash",
+                              store=f"dir://{store_root}", device=dev).serve()
+    cluster = dep.cluster
+    reqs = {n: [dep.submit(pools[n][0][i % N_REQUESTS], tenant=n,
+                           key=f"{n}-{i}") for i in range(FLEET_REQUESTS)]
+            for n in names}
+    dep.drain()
+    for n in names:
+        check(f"cluster {n}", reqs[n], pools[n][1])
+    log(f"[cluster] hosts=2, consistent_hash: placement "
+        f"{json.dumps(cluster.plan.to_dict())}; {FLEET_REQUESTS} keyed "
+        f"requests per tenant, equal to the plain forward")
+    host, moved = cluster.scale_up()
+    if cluster.cache_hits < 1:
+        raise AssertionError(f"scale-up did not warm-start from the shared "
+                             f"store: {cluster.stats().get('cache')}")
+    log(f"[cluster] scale_up: host {host.host_id} replicates {moved}; "
+        f"cache hits {cluster.cache_hits}, misses {cluster.cache_misses}")
+    tenant = moved[0]
+    x_t, want_t = pools[tenant]
+    reqs = [dep.submit(x_t[i], tenant=tenant, key=f"drain-{i}")
+            for i in range(N_REQUESTS)]
+    victim = max(cluster._hosts_for(tenant), key=lambda h: h.pending())
+    queued = victim.pending()
+    cluster.start_drain(victim)
+    migrated = queued - victim.pending()
+    if migrated <= 0:
+        raise AssertionError(f"draining host {victim.host_id} migrated no "
+                             f"queued request ({queued} queued)")
+    dep.drain()
+    check(f"cluster drain {tenant}", reqs, want_t)
+    victim.retire()
+    log(f"[cluster] start_drain host {victim.host_id}: {migrated} of {queued} "
+        f"queued requests migrated, every answer (moved or not) equal to the "
+        f"plain forward; host retired")
+    log(f"[cluster] stats {json.dumps(cluster.stats(), default=str)}")
+
+    counts = launch_counts()
+    log(f"[fleet] launches over phase 12: {counts}")
+    for name in ("xnor_gemm_cuda", "segment_cuda"):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 12 never launched {name}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[fleet] phase 12: {seconds:.2f} s")
+    return counts, seconds
 
 
 def main() -> int:
@@ -1502,6 +1884,9 @@ def main() -> int:
         f": {rec.result}; predictor_meta {meta['n_rows']} rows fitted of "
         f"{meta['source_rows']} stored")
     log(f"[autotune] phase 11: {time.perf_counter() - t_phase:.2f} s")
+
+    # -- 12. co-serving: fleet, elastic, cluster --------------------------
+    fleet_phase(dev, model, packed, x_req, expected, store_root)
     shutil.rmtree(store_root, ignore_errors=True)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

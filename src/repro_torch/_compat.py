@@ -1,8 +1,10 @@
-"""Deprecation plumbing for renamed entry points.
+"""Deprecation plumbing for the ``repro_torch.api`` naming sweep.
 
-The legacy spellings (``configuration_from_mapping``,
-``fuse_configuration``) stay importable as shims that delegate to the
-current names and emit one :class:`DeprecationWarning` **per call
+The facade (:mod:`repro_torch.api`) owns the canonical verb set; the
+legacy spellings (``configuration_from_mapping``,
+``fuse_configuration``, ``all_device_configuration``) stay importable
+as shims that delegate to the facade and emit one
+:class:`DeprecationWarning` **per call
 site** — a long-running serving loop hitting a shim every step warns
 once, not once per request.
 """
@@ -17,9 +19,9 @@ _WARNED: set = set()
 
 
 def warn_deprecated(old: str, new: str) -> None:
-    """Warn that `old` is deprecated in favor of `new` (a dotted name),
-    at most once per call site of the shim that invokes this (the
-    shim's caller's file:line keys the dedup)."""
+    """Warn that `old` is deprecated in favor of ``repro_torch.api``'s
+    `new`, at most once per call site of the shim that invokes this
+    (the shim's caller's file:line keys the dedup)."""
     site = ("<unknown>", 0)
     frame = inspect.currentframe()
     try:
@@ -35,7 +37,8 @@ def warn_deprecated(old: str, new: str) -> None:
         return
     _WARNED.add(key)
     warnings.warn(
-        f"{old} is deprecated; use {new} (same arguments, same result)",
+        f"{old} is deprecated; use repro_torch.api.{new} (same arguments, "
+        "same result)",
         DeprecationWarning,
         stacklevel=3,
     )

@@ -539,14 +539,14 @@ def configuration_from_mapping(
     batch: int,
     mapping: Sequence[str],
 ) -> EfficientConfiguration:
-    """Deprecated spelling of :func:`price_mapping` — kept importable;
-    warns once per call site and delegates."""
+    """Deprecated spelling of :func:`repro_torch.api.price_mapping` —
+    kept importable; warns once per call site and delegates."""
     from repro_torch._compat import warn_deprecated
 
-    warn_deprecated(
-        "configuration_from_mapping", "repro_torch.core.price_mapping"
-    )
-    return price_mapping(table, batch, mapping)
+    warn_deprecated("configuration_from_mapping", "price_mapping")
+    from repro_torch import api
+
+    return api.price_mapping(table, batch, mapping)
 
 
 def uniform_total(table: ProfileTable, config: str, batch: int) -> float:

@@ -538,9 +538,11 @@ def fuse_configuration(
     config: EfficientConfiguration,
     **kwargs,
 ) -> EfficientConfiguration:
-    """Deprecated spelling of :func:`fuse_mapping` — kept importable;
-    warns once per call site and delegates."""
+    """Deprecated spelling of :func:`repro_torch.api.fuse_mapping` —
+    kept importable; warns once per call site and delegates."""
     from repro_torch._compat import warn_deprecated
 
-    warn_deprecated("fuse_configuration", "repro_torch.core.fuse_mapping")
-    return fuse_mapping(model, packed_params, table, config, **kwargs)
+    warn_deprecated("fuse_configuration", "fuse_mapping")
+    from repro_torch import api
+
+    return api.fuse_mapping(model, packed_params, table, config, **kwargs)

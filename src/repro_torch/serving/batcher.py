@@ -19,8 +19,8 @@ FIFO by submission timestamp (the clock is read under the lock, so
 queue order and ``submit_t`` order agree).  ``next_batch``/``drain``
 are also lock-safe (two drainers never pop the same request), but the
 serving engine's step path is single-threaded by contract — see
-``repro_torch.serving.engine``: client threads submit, one dispatch
-thread drains.
+``repro_torch.serving.engine``.  The fleet router depends on exactly
+this split: client threads submit, one dispatch thread drains.
 """
 
 from __future__ import annotations
@@ -188,3 +188,28 @@ class MicroBatcher:
         while (mb := self.next_batch(force=force)) is not None:
             batches.append(mb)
         return batches
+
+    def migrate_to(self, other: "MicroBatcher") -> int:
+        """Move every *queued* (not yet dispatched) request into
+        `other`'s queue, preserving submit-timestamp order against
+        requests already waiting there.  The Request objects move
+        as-is — callers holding them block on the same event and
+        complete on the destination's engine.  Returns requests moved.
+
+        Locks are taken strictly sequentially (drain self fully, then
+        lock other), never nested, so concurrent submitters on either
+        batcher cannot deadlock against a migration."""
+        if other is self:
+            return 0
+        with self._lock:
+            moving = list(self._queue)
+            self._queue.clear()
+        if not moving:
+            return 0
+        with other._lock:
+            merged = sorted(
+                list(other._queue) + moving, key=lambda r: r.submit_t
+            )
+            other._queue.clear()
+            other._queue.extend(merged)
+        return len(moving)

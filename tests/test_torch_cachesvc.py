@@ -7,8 +7,8 @@ virtual time (equal journals), and the job bodies and the service on
 the same tables (equal result dicts).  Every test that starts a
 ``WorkerPool`` or a periodic flush stops it in a ``finally`` with a
 join timeout.  Mirrors ``tests/test_cachesvc_backends.py`` and the
-cases of ``tests/test_cachesvc.py`` that need no ``repro.api`` (those
-wait for ROADMAP queue 1 item 10), refit passes included."""
+cases of ``tests/test_cachesvc.py``, refit passes and the cluster's
+warm start from a shared store included."""
 
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from fixtures import (  # noqa: E402
     loglinear_table,
     planted_gamma_ledger,
     synthetic_model,
+    tied_table,
 )
 
 from repro import cachesvc as R_C  # noqa: E402
@@ -43,6 +44,7 @@ from repro.core.parallel_config import CONFIGS, CPU  # noqa: E402
 from repro.core.profiler import ProfileTable as R_Table  # noqa: E402
 from repro.kernels import registry as R_REG  # noqa: E402
 from repro_torch import cachesvc as T_C  # noqa: E402
+from repro_torch import fleet as T_F  # noqa: E402
 from repro_torch import store as T_S  # noqa: E402
 from repro_torch.bnn import models as T_M  # noqa: E402
 from repro_torch.cachesvc import jobs as T_J  # noqa: E402
@@ -824,9 +826,16 @@ def test_refit_once_equal_to_reference_and_thresholds(tmp_path, min_new):
 @pytest.mark.parametrize("gamma", [0.3, 0.8])
 def test_refit_once_fits_interference_equal_to_reference(tmp_path, gamma):
     ledger, expected = planted_gamma_ledger(gamma)
+    # the same closed steps in the port's own ledger
+    own = T_F.DeviceTimeLedger(window=ledger.window)
+    for tenant in ledger.tenants():
+        for host_s, dev_s in ledger.step_rows(tenant):
+            own.record(tenant, HOST, host_s)
+            own.record(tenant, DEVICE, dev_s)
+            own.close_step(tenant)
     port = T_S.ProfileStore(tmp_path / "port", fingerprint="fp")
     ref = R_S.ProfileStore(tmp_path / "ref", fingerprint="fp")
-    got = T_J.refit_once(port, observations=(ledger, expected))
+    got = T_J.refit_once(port, observations=(own, expected))
     want = R_J.refit_once(ref, observations=(ledger, expected))
     assert got == want and got["interference"] is True
     assert got["gamma"] == pytest.approx(gamma, abs=1e-9)
@@ -1078,3 +1087,46 @@ def test_service_workers_take_jobs_off_thread(tmp_path):
         pool.stop(timeout=5.0)
     assert pool.alive == 0 and calls["profile"] == 2
     assert sorted(r.status for r in svc.journal) == ["done", "done"]
+
+
+def test_cluster_warm_starts_scale_up_from_shared_store():
+    from tests.test_cluster import FakeEngine
+
+    from repro import api as R_API
+    from repro.cluster import Cluster as R_Cluster
+    from repro_torch import api as T_API
+    from repro_torch.cluster import Cluster
+
+    def tenant(api, mapper, conv, name):
+        table = conv(tied_table(name))
+        config = mapper.price_mapping(table, 4,
+                                      [CPU] * len(table.layer_labels))
+        return api.TenantPlan(name=name, model=None, packed=[], table=table,
+                              config=config)
+
+    def factory(tp, config, **_kw):
+        return FakeEngine(config)
+
+    runs = []
+    for cls, api, mapper, conv, kw in (
+        (Cluster, T_API, T_MAP, lambda t: ProfileTable.from_json(
+            t.to_json()), {"device": "cpu"}),
+        (R_Cluster, R_API, R_MAP, lambda t: t, {}),
+    ):
+        cluster = cls([tenant(api, mapper, conv, n) for n in ("a", "b")],
+                      n_hosts=1, engine_factory=factory, clock=FakeClock(),
+                      batch_sizes=(4,), store="mem://torch-warm-start", **kw)
+        assert cluster.cache_hits == 0 and cluster.cache_misses == 0
+        cluster.scale_up()
+        # replicating onto the empty host first re-maps tenant a solo (a
+        # group never seen: miss), then lands on the seeded {a, b}
+        # joint group: hit — the mapper run is skipped
+        assert (cluster.cache_hits, cluster.cache_misses) == (1, 1)
+        stats = cluster.stats()
+        assert stats["cache"]["hits"] == 1
+        assert stats["cache"]["backend"]["backend"] == "mem"
+        for name in ("a", "b"):
+            assert len(cluster._hosts_for(name)) == 2
+        runs.append({n: [(h.host_id, h.router.tenant(n).engine.config.to_json())
+                         for h in cluster._hosts_for(n)] for n in ("a", "b")})
+    assert runs[0] == runs[1]

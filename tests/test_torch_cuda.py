@@ -409,3 +409,79 @@ def test_chunked_attention_on_the_card_raises_not_falls_back(dev, what):
     with pytest.raises((TypeError, ValueError)):
         T_MOD.chunked_attention(q, q, q, causal=True, q_chunk=8, kv_chunk=8)
     assert flash_attention_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# elastic subnets on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["cifar10", "fashion_mnist"])
+def test_narrow_fc_level_is_contiguous_on_the_card_and_the_kernel_takes_it(
+        dev, arch):
+    """Both paper nets end FC S FC: the half-width level's last FC
+    weight is a row-strided slice of the base, which the kernel
+    refuses; ``SubnetFamily.build`` makes it contiguous on the card."""
+    from repro_torch.elastic import ElasticSpec, SubnetFamily, slice_packed
+
+    m, packed, _ = _full_net(arch, dev)
+    fam = SubnetFamily.build(m, packed, ElasticSpec(fractions=(1.0, 0.5)))
+    last = len(m.specs) - 1
+    p = fam.level(1).packed[last]
+    w = p["w_words"]
+    assert w.is_cuda and w.is_contiguous()
+    assert fam.storage(1)["copied_bytes"] >= w.numel() * 4
+    a = torch.from_numpy(_words(np.random.default_rng(0), 16, 1,
+                                w.shape[1])).to(dev)
+    got = xnor_gemm_cuda(a, w, p["k_true"])
+    assert torch.equal(got, xnor_gemm_ref(a, w, p["k_true"]))
+    raw = slice_packed(m.specs, packed, fam.level(1).model.specs)[last]
+    assert not raw["w_words"].is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        xnor_gemm_cuda(a, raw["w_words"], p["k_true"])
+
+
+def test_elastic_engine_level_switch_serves_equal_to_the_plain_path(dev):
+    """Levels 0 -> 1 -> 0 of a half-width family on the card (level 0
+    per layer through kernel 1, level 1 one ``seg_cuda`` launch): every
+    answer ``torch.equal`` to the plain forward of its level."""
+    from repro_torch.api import TenantPlan
+    from repro_torch.elastic import (
+        ElasticEngine, ElasticPlan, ElasticSpec, SubnetFamily,
+    )
+
+    m, packed, xs = _net("fashion_mnist", dev, batch=4)
+    fam = SubnetFamily.build(m, packed, ElasticSpec(fractions=(1.0, 0.5)))
+    levels = []
+    for lvl in fam:
+        n = len(lvl.model.specs)
+        row = [{c: 1e-4 for c in CONFIGS} for _ in range(n)]
+        table = ProfileTable(
+            lvl.model.name, (4,),
+            tuple(f"L{s.idx}:{s.notation}" for s in lvl.model.specs),
+            {4: row}, kernel_times={4: row},
+            h2d_times={4: [1e-5] * n}, d2h_times={4: [1e-5] * n})
+        ec = price_mapping(table, 4, ("XYZ",) * n)
+        if lvl.level:
+            ec = dataclasses.replace(
+                ec, fused_segments=((0, n, "seg_cuda", 1e-9),))
+        levels.append(TenantPlan(name=lvl.model.name, model=lvl.model,
+                                 packed=lvl.packed, table=table, config=ec))
+    plan = ElasticPlan(family=fam, levels=tuple(levels),
+                       predicted=(False, False))
+    engine = ElasticEngine(plan, allowed_batch_sizes=(4,), max_wait_s=0.0,
+                           device=dev)
+    engine.warm()
+    x = xs[0].cpu()
+    before = (xnor_gemm_cuda.launches, segment_cuda.launches)
+    for k in (0, 1, 0):
+        assert engine.set_level(k) is True
+        lvl = fam.level(k)
+        want = T_M.forward_packed(lvl.model.specs, lvl.packed, x).cpu()
+        reqs = [engine.submit(x[j].numpy()) for j in range(4)]
+        engine.step(force=True)
+        got = torch.from_numpy(np.stack([r.wait(timeout=60) for r in reqs]))
+        assert torch.equal(got, want), f"level {k}"
+    assert engine.level_switches == 2
+    assert xnor_gemm_cuda.launches > before[0]
+    assert segment_cuda.launches == before[1] + 1

@@ -8,7 +8,8 @@ JAX package, by design); a ``LatencyPredictor`` fitted on the same rows
 (its JSON) and the table it predicts (kernel rows priced from the
 port's own metadata, which the test feeds to the reference predictor
 too); ``fit_gamma``, ``FittedInterference`` and ``InterferenceFit`` on
-the observations of ``fixtures.planted_gamma_ledger``.  Mirrors
+the observations of ``fixtures.planted_gamma_ledger``, harvested by
+the port from its own ``DeviceTimeLedger``.  Mirrors
 ``tests/test_estimator.py``."""
 
 from __future__ import annotations
@@ -33,9 +34,11 @@ from fixtures import (  # noqa: E402
 from repro import estimator as R_E  # noqa: E402
 from repro.bnn import models as R_M  # noqa: E402
 from repro_torch import estimator as T_E  # noqa: E402
+from repro_torch import fleet as T_F  # noqa: E402
 from repro_torch.bnn import models as T_M  # noqa: E402
 from repro_torch.core import cost_model as T_cm  # noqa: E402
 from repro_torch.core import mapper as T_map  # noqa: E402
+from repro_torch.core.mapper import DEVICE, HOST  # noqa: E402
 from repro_torch.core.parallel_config import CONFIGS, CPU, FULL_GPU  # noqa: E402
 from repro_torch.core.profiler import ProfileTable  # noqa: E402
 from repro_torch.kernels.registry import DEFAULT_REGISTRY, GemmShape  # noqa: E402
@@ -251,14 +254,24 @@ LEDGERS = [(0.8, 0.0, 0), (0.3, 0.05, 1), (1.5, 0.1, 2), (0.0, 0.0, 3)]
 
 
 def _observations(gamma, noise, seed):
+    """The planted-gamma trace in the reference's ledger, the same
+    closed steps replayed into the port's own ledger, and the solo
+    expectations that decode them."""
     ledger, expected = planted_gamma_ledger(gamma, noise=noise, seed=seed)
-    return ledger, expected
+    port = T_F.DeviceTimeLedger(window=ledger.window)
+    for tenant in ledger.tenants():
+        for host_s, dev_s in ledger.step_rows(tenant):
+            port.record(tenant, HOST, host_s)
+            port.record(tenant, DEVICE, dev_s)
+            port.close_step(tenant)
+    assert port.snapshot() == ledger.snapshot()
+    return port, ledger, expected
 
 
 @pytest.mark.parametrize("gamma,noise,seed", LEDGERS)
 def test_interference_fit_equal_to_reference(gamma, noise, seed):
-    ledger, expected = _observations(gamma, noise, seed)
-    got = T_E.InterferenceFit.from_ledger(ledger, expected)
+    port, ledger, expected = _observations(gamma, noise, seed)
+    got = T_E.InterferenceFit.from_ledger(port, expected)
     want = R_E.InterferenceFit.from_ledger(ledger, expected)
     assert len(got) == len(want) > 0
     assert [vars(o) for o in got.observations()] == [

@@ -75,9 +75,13 @@ def test_scan_covers_the_whole_port():
             "engine.py", "profiler.py", "flash_attention.py", "ops.py",
             "transformer.py", "steps.py", "serve.py", "telemetry.py",
             "drift.py", "controller.py", "hillclimb.py", "profile_store.py",
-            "backends.py", "workqueue.py", "jobs.py", "service.py"} <= names
+            "backends.py", "workqueue.py", "jobs.py", "service.py",
+            "api.py", "ledger.py", "scheduler.py", "router.py", "subnet.py",
+            "planner.py", "dispatch.py", "placement.py", "host.py",
+            "cluster.py"} <= names
     packages = {p.parent.name for p in SCANNED if p.name == "__init__.py"}
-    assert {"adapt", "store", "cachesvc"} <= packages
+    assert {"adapt", "store", "cachesvc", "fleet", "elastic",
+            "cluster"} <= packages
 
 
 @pytest.mark.parametrize(
@@ -117,7 +121,7 @@ def _small():
         {2: row}, kernel_times={2: row},
         h2d_times={2: [0.0] * n}, d2h_times={2: [0.0] * n},
     )
-    return m, packed, price_mapping(table, 2, ("XYZ",) * n)
+    return m, packed, price_mapping(table, 2, ("XYZ",) * n), table
 
 
 def test_resolve_device_defaults_to_cuda_and_raises_without_it():
@@ -134,11 +138,15 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize("entry", [
     "ServingEngine", "SegmentPipeline", "profile_bnn_model",
     "build_mapped_model", "pack_params", "fuse_mapping",
-    "greedy_decode", "init_params", "launch.serve",
+    "greedy_decode", "init_params", "launch.serve", "api.plan_single",
+    "api.plan_fleet", "api.Deployment.plan", "api.Deployment.serve",
+    "cluster.Cluster", "elastic.ElasticEngine", "elastic.plan_family",
 ])
 def test_entry_points_raise_without_a_card(entry):
-    from repro_torch import configs
+    from repro_torch import api, configs
     from repro_torch.bnn.models import pack_params, random_fp_params
+    from repro_torch.cluster import Cluster
+    from repro_torch.elastic import ElasticEngine, plan_family
     from repro_torch.core import (
         build_mapped_model, fuse_mapping, profile_bnn_model,
     )
@@ -148,7 +156,13 @@ def test_entry_points_raise_without_a_card(entry):
     from repro_torch.serving import SegmentPipeline, ServingEngine
 
     _no_card()
-    m, packed, ec = _small()
+    m, packed, ec, table = _small()
+    tp = api.TenantPlan(name=m.name, model=m, packed=packed, table=table,
+                        config=ec)
+    planned = api.Deployment.plan(
+        (m, packed), batch_sizes=(2,), time_source="analytic", repeats=1,
+        device="cpu", elastic=(1.0, 0.5))
+    levels = planned.tenants[m.name].elastic
     cfg = configs.get_smoke("qwen2_0_5b")
     gen = torch.Generator().manual_seed(0)
     calls = {
@@ -166,6 +180,19 @@ def test_entry_points_raise_without_a_card(entry):
             n_steps=2, max_len=8),
         "init_params": lambda: init_params(cfg, gen),
         "launch.serve": lambda: serve.main(["--arch", "qwen2_0_5b"]),
+        "api.plan_single": lambda: api.plan_single(
+            m, packed, batch_sizes=(2,), repeats=1),
+        "api.plan_fleet": lambda: api.plan_fleet(
+            {"a": (m, packed)}, batch_sizes=(2,), repeats=1),
+        "api.Deployment.plan": lambda: api.Deployment.plan(
+            (m, packed), batch_sizes=(2,), repeats=1),
+        "api.Deployment.serve": lambda: api.Deployment(
+            tenants=planned.tenants).serve(),
+        "cluster.Cluster": lambda: Cluster([tp], n_hosts=1,
+                                           batch_sizes=(2,)),
+        "elastic.ElasticEngine": lambda: ElasticEngine(levels),
+        "elastic.plan_family": lambda: plan_family(
+            levels.family, batch_sizes=(2,), repeats=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -525,3 +525,24 @@ def test_entries_gc_and_export(tmp_path):
         assert "payload" in e["document"]
     stats = store.stats()
     assert stats["backend"] == "dir" and stats["entries"] == 2
+
+
+def test_plan_single_reads_through_backend_uri(tmp_path):
+    from repro_torch import api
+
+    packed = T_M.pack_params(MODEL.specs, T_M.random_fp_params(MODEL.specs, 0),
+                             device="cpu")
+    store = ProfileStore(f"sqlite://{tmp_path}/api.db", device="cpu")
+    tp1 = api.plan_single(MODEL, packed, batch_sizes=(4,), store=store,
+                          time_source="analytic", repeats=1, device="cpu")
+    before = store.stats()["hits"]
+    # the facade takes the URI itself and keys it by the same device
+    tp2 = api.plan_single(MODEL, packed, batch_sizes=(4,),
+                          store=f"sqlite://{tmp_path}/api.db",
+                          time_source="analytic", repeats=1, device="cpu")
+    tp3 = api.plan_single(MODEL, packed, batch_sizes=(4,), store=store,
+                          time_source="analytic", repeats=1, device="cpu")
+    assert store.stats()["hits"] > before
+    for tp in (tp2, tp3):
+        assert tp.config.layer_configs == tp1.config.layer_configs
+        assert tp.table.times == tp1.table.times
