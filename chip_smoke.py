@@ -138,6 +138,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels must launch during the phase.  The logical hosts share the
    one card and the one CPU.
 
+13. training (``train_phase``): full-width CIFAR-10 trained on the card
+   with the STE recipe on ``make_image_dataset(0, 4096, (32, 32), 3)``
+   (``ShardedBatcher``, batch 64, AdamW lr 2e-3).  One ``train_step`` on
+   the card against the same step on CPU tensors from the same
+   ``fp_params_from_numpy`` params (loss and grad_norm within a relative
+   1e-5, each trainable leaf's gradient within 1e-4 of its largest
+   magnitude, latent weights, gamma and beta within 0.05 x lr where the
+   clipped gradient is at least 1e-6 and within 2 x lr below that, the
+   running mean within 1e-5 of its largest magnitude, the running var
+   1e-4); then
+   ``TrainLoop`` (checkpoints, async, an injected failure, a relaunch
+   that resumes) under cuDNN deterministic, its final state held
+   ``torch.equal`` to an uninterrupted run, the loss over the last 10
+   steps below the first 10, steps/s, step wall p50, one traced train
+   step's busy and idle time and a held-out accuracy; the fp eval
+   logits of 32 held-out examples equal to ``forward_packed`` of
+   ``pack_params(trained)``; ``api.plan_single(fuse=True)`` warm from
+   the phase 8 store (a miss fails); 32 requests served through
+   ``ServingEngine`` equal to the plain ``forward_packed`` (on CUDA
+   tensors), their p50 beside phase 5's; both BNN kernels must launch
+   during the phase.
+
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
 launches of a kernel than its wrapper counted is taken again, and three
@@ -149,7 +171,8 @@ launch once per layer of the prefill, 24 times), phases 5-6 up to
 phase 6's untraced serving (both BNN kernels must have launched while
 serving), phase 9's adaptive serving (``segment_cuda``), phase 10's
 explore job (``xnor_gemm_cuda``), phase 11's autotune sweep and
-serving (``xnor_gemm_cuda``) and phase 12 (``xnor_gemm_cuda`` and
+serving (``xnor_gemm_cuda``), phase 12 (``xnor_gemm_cuda`` and
+``segment_cuda``) and phase 13 (``xnor_gemm_cuda`` and
 ``segment_cuda``).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
@@ -245,6 +268,17 @@ FLEET_BATCH = 16
 FLEET_REQUESTS = 64
 ELASTIC_FRACTIONS = (1.0, 0.5)
 QUALITY_BURST, QUALITY_ROUNDS, QUALITY_DEADLINE = 64, 4, 1.5
+
+# training (phase 13): full-width CIFAR-10 on the synthetic images, the
+# batch, AdamW's learning rate, TrainLoop's steps, checkpoint interval
+# and injected failure; the card step is held to the CPU step at these
+# tolerances (relative for loss, grad_norm, gradients and running
+# stats; the AdamW-updated leaves absolute, in units of lr, where the
+# clipped gradient is at least STEP_GRAD_FLOOR)
+TRAIN_EXAMPLES, TRAIN_BATCH, TRAIN_LR = 4096, 64, 2e-3
+TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 120, 40, 60
+STEP_RTOL, STEP_W_ATOL, STEP_VAR_FACTOR = 1e-5, 0.05, 10
+STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-4, 1e-6
 
 # adaptive serving (phase 9): requests per burst, calibration stops after
 # this many steps without a new journal entry (at most CALIBRATE_MAX
@@ -895,6 +929,336 @@ def fleet_phase(dev, model, packed, x_req, expected, store_root) -> tuple:
             raise AssertionError(f"phase 12 never launched {name}")
     seconds = time.perf_counter() - t_phase
     log(f"[fleet] phase 12: {seconds:.2f} s")
+    return counts, seconds
+
+
+def fp_packed_divergence(model, params, packed, x01) -> str:
+    """Where the fp-sim eval forward first parts from the packed forward
+    on `x01`: the layer, example, channel and the values on both sides
+    (pre-activation, BN output, folded threshold and flip), or "" when
+    no layer does."""
+    import torch
+
+    from repro_torch.bnn import layers as L
+    from repro_torch.bnn.binarize import unpack_bits
+    from repro_torch.bnn.models import params_to, prepare_input_packed
+
+    x_fp = L.binarize_input(x01)
+    x_pk = prepare_input_packed(x01)
+    with torch.no_grad():
+        for spec, p, q in zip(model.specs, params, packed):
+            q = params_to(q, x_pk.device)
+            pre = x_fp
+            if spec.kind == "conv":
+                x_fp, x_pk = (L.conv_fp(x_fp, p["w"]),
+                              L.conv_packed(x_pk, q["w_words"], q["k_true"]))
+            elif spec.kind == "mp":
+                x_fp, x_pk = L.maxpool_fp(x_fp), L.maxpool_packed(x_pk)
+            elif spec.kind == "step":
+                x_fp = L.step_fp(x_fp, p, train=False)[0]
+                x_pk = L.step_packed(x_pk, q["thresh"], q["flip"])
+            elif spec.kind == "flat":
+                x_fp = x_fp.reshape(x_fp.shape[0], -1)
+                x_pk = L.flat_packed(x_pk, spec.in_shape[-1])
+            elif spec.kind == "fc":
+                x_fp, x_pk = (L.fc_fp(x_fp, p["w"]),
+                              L.fc_packed(x_pk, q["w_words"], q["k_true"]))
+            if spec.kind == "flat":
+                continue            # packed words: compared at the next step
+            got = (unpack_bits(x_pk, spec.units) if spec.kind == "step"
+                   else x_pk.float())
+            bad = (got != x_fp).nonzero()
+            if len(bad):
+                where = tuple(int(i) for i in bad[0])
+                c = where[-1]
+                msg = (f"L{spec.idx} {spec.notation}: {len(bad)} values "
+                       f"differ, first at {where}: fp {float(x_fp[where])} "
+                       f"packed {float(got[where])}")
+                if spec.kind == "step":
+                    y = ((pre[where] - p["mean"][c])
+                         * torch.rsqrt(p["var"][c] + L.BN_EPS) * p["gamma"][c]
+                         + p["beta"][c])
+                    msg += (f"; pre-activation {float(pre[where])}, BN output "
+                            f"{float(y)!r} (float32), threshold "
+                            f"{int(q['thresh'][c])}, flip {bool(q['flip'][c])}"
+                            f", gamma {float(p['gamma'][c])!r} beta "
+                            f"{float(p['beta'][c])!r} mean "
+                            f"{float(p['mean'][c])!r} var "
+                            f"{float(p['var'][c])!r}")
+                return msg
+    return ""
+
+
+def train_phase(dev, store_root, serve_p50_ms: float) -> tuple:
+    """Phase 13: train full-width CIFAR-10 on the card with the STE
+    recipe, then pack, plan and serve the trained net.  One step on the
+    card against the same step on CPU tensors; ``TrainLoop`` with
+    checkpoints, an injected failure and a resume held ``torch.equal``
+    to the uninterrupted run; the fp eval logits equal to the packed
+    scores; ``api.plan_single`` warm from the phase 8 store; 32 served
+    answers bit-exact against the plain ``forward_packed`` (on CUDA
+    tensors: integer arithmetic with the same answers as on the CPU).
+    `serve_p50_ms` is phase 5's served p50, printed beside this one.
+    Returns (launch counts, seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.bnn import layers as L
+    from repro_torch.bnn.models import (
+        build_model, forward_packed, fp_params_from_numpy, pack_params,
+        prepare_input_packed,
+    )
+    from repro_torch.bnn.train import (
+        TrainState, cross_entropy, eval_step, init_train_state, train_step,
+    )
+    from repro_torch.data import ShardedBatcher, make_image_dataset
+    from repro_torch.device import HOST
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import InjectedFailure, LoopConfig, TrainLoop
+    from repro_torch.serving import ServingEngine
+    from repro_torch.store import ProfileStore
+    from repro_torch.tree import flatten, leaves, paths, unflatten
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    model = build_model("cifar10")
+    ds = make_image_dataset(SEED, TRAIN_EXAMPLES, model.input_hw,
+                            model.in_channels)
+    bt = ShardedBatcher(n=TRAIN_EXAMPLES, global_batch=TRAIN_BATCH, seed=SEED)
+    log(f"[train] CIFAR-10 at full width ({len(model.specs)} layers), "
+        f"make_image_dataset({SEED}, {TRAIN_EXAMPLES}, {model.input_hw}, "
+        f"{model.in_channels}), ShardedBatcher(global_batch={TRAIN_BATCH}, "
+        f"seed={SEED}), AdamW lr {TRAIN_LR}")
+
+    # -- one step on the card against the same step on CPU tensors -------
+    init, opt = init_train_state(model, torch.Generator().manual_seed(SEED),
+                                 lr=TRAIN_LR, device=HOST)
+    params_np = [{k: v.numpy() for k, v in p.items()} for p in init.params]
+
+    def fresh(device):
+        params = fp_params_from_numpy(params_np, device)
+        trainable, _ = L.split_trainable(params)
+        return TrainState(params, opt.init(trainable),
+                          torch.zeros((), dtype=torch.int32, device=device))
+
+    x, y = bt.batch((ds.x, ds.y), 0)
+
+    def grads_of(device):
+        """The loss gradient of every trainable leaf at the initial
+        params on `device`, taken as ``train_step`` takes it."""
+        trainable, bn = L.split_trainable(fresh(device).params)
+        flat, tdef = flatten(trainable)
+        live = [t.requires_grad_(True) for t in flat]
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            logits, _ = model.apply_fp(
+                L.merge_params(unflatten(tdef, live), bn),
+                torch.as_tensor(x, device=device), train=True)
+            loss = cross_entropy(logits, torch.as_tensor(y, device=device))
+            got = torch.autograd.grad(loss, live)
+        return {f".params/{n}": g.cpu() for n, g in zip(paths(trainable),
+                                                         got)}
+
+    t0 = time.perf_counter()
+    cpu_state, cpu_m = train_step(model, opt, fresh(HOST), x, y)
+    cpu_s = time.perf_counter() - t0
+    dev_state, dev_m = train_step(model, opt, fresh(dev), x, y)
+    torch.cuda.synchronize()
+    cpu_g, dev_g = grads_of(HOST), grads_of(dev)
+    # the clipped gradient AdamW's first step takes, from the CPU step
+    clip = min(1.0, 1.0 / (float(cpu_m["grad_norm"]) + 1e-9))
+    metrics, errs, fails = [], [], []
+    for k in ("loss", "grad_norm"):
+        a, b = float(dev_m[k]), float(cpu_m[k])
+        rel = abs(a - b) / abs(b)
+        metrics.append(f"{k} card {a!r} cpu {b!r} rel {rel:.3e}")
+        if rel > STEP_RTOL:
+            fails.append(k)
+    for name, a, b in zip(paths(dev_state), leaves(dev_state),
+                          leaves(cpu_state)):
+        if not name.startswith(".params"):
+            continue
+        d = (a.cpu().double() - b.double()).abs()
+        kind = name.rsplit("/", 1)[1]
+        short_name = name.removeprefix(".params/")
+        if kind in ("mean", "var"):
+            tol = STEP_RTOL * float(b.abs().max()) * (
+                STEP_VAR_FACTOR if kind == "var" else 1)
+            errs.append(f"{short_name} {float(d.max()):.3e} (of max "
+                        f"{float(b.abs().max()):.4g})")
+            if float(d.max()) > tol:
+                fails.append((name, float(d.max()), tol))
+            continue
+        g_err = float((dev_g[name] - cpu_g[name]).abs().max())
+        g_tol = STEP_GRAD_RTOL * float(cpu_g[name].abs().max())
+        firm = (clip * cpu_g[name]).abs() >= STEP_GRAD_FLOOR
+        firm_err = float(d[firm].max()) if bool(firm.any()) else 0.0
+        soft_err = float(d[~firm].max()) if bool((~firm).any()) else 0.0
+        errs.append(f"{short_name} {float(d.max()):.3e} (grad {g_err:.3e} "
+                    f"of max {g_tol / STEP_GRAD_RTOL:.3e}; at or above the "
+                    f"floor {firm_err:.3e}; {int((~firm).sum())} below it, "
+                    f"max {soft_err:.3e})")
+        if g_err > g_tol:
+            fails.append((name + " grad", g_err, g_tol))
+        if firm_err > STEP_W_ATOL * TRAIN_LR:
+            fails.append((name, firm_err, STEP_W_ATOL * TRAIN_LR))
+        if soft_err > 2 * TRAIN_LR:
+            fails.append((name + " below the floor", soft_err, 2 * TRAIN_LR))
+    log(f"[train] one step, card against CPU tensors from the same "
+        f"fp_params_from_numpy and batch (CPU step {cpu_s:.2f} s); "
+        f"tolerances: loss and grad_norm relative {STEP_RTOL}; each "
+        f"trainable leaf's gradient {STEP_GRAD_RTOL} of its largest "
+        f"magnitude (a conv weight's gradient sums {TRAIN_BATCH * 1024} "
+        f"positions in f32, in cuDNN's order and in the CPU's); "
+        f"after the AdamW step (g / (|g| + 1e-8) x lr, within 1 % of "
+        f"+-lr where the clipped |g| >= {STEP_GRAD_FLOOR:g}) every w, gamma "
+        f"and beta within {STEP_W_ATOL} x lr where |g| >= "
+        f"{STEP_GRAD_FLOOR:g}, within one step either way (2 x lr) below "
+        f"it, where rounding decides the step; running mean {STEP_RTOL} "
+        f"of its largest magnitude, running var "
+        f"{STEP_VAR_FACTOR * STEP_RTOL:g} (a batch variance sums up to "
+        f"{TRAIN_BATCH * 1024} squares); " + "; ".join(metrics)
+        + "; max abs error per layer and leaf: " + "; ".join(errs))
+    if fails:
+        raise AssertionError(f"card step differs from the CPU step: {fails}")
+
+    # -- TrainLoop: checkpoints, an injected failure, a resume ------------
+    def step_fn(state, batch):
+        return train_step(model, opt, state, *batch)
+
+    def batch_fn(step):
+        xb, yb = bt.batch((ds.x, ds.y), step)
+        return torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+
+    def loop(name, inject=None):
+        cfg = LoopConfig(total_steps=TRAIN_STEPS,
+                         ckpt_dir=str(ckpt_root / name),
+                         save_every=TRAIN_SAVE_EVERY, keep=2,
+                         async_save=True, inject_failure_at=inject)
+        return TrainLoop(step_fn, batch_fn, fresh(dev), cfg)
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                     allow_tf32=False):
+        ref = loop("ref")
+        t0 = time.perf_counter()
+        ref_out = ref.run()
+        ref_s = time.perf_counter() - t0
+        crash = loop("crash", inject=TRAIN_FAIL_AT)
+        try:
+            crash.run()
+            raise AssertionError("the injected failure did not fire")
+        except InjectedFailure as e:
+            failed_at = str(e)
+        crash.mgr.wait()        # the crashed run's async write lands first
+        resumed = loop("crash")
+        resumed_out = resumed.run()
+        xt, yt = bt.batch((ds.x, ds.y), 10_001)
+        acc = float(eval_step(model, ref.state.params, xt, yt))
+        xs, ys = batch_fn(TRAIN_STEPS)
+        wall, busy, by_name, n_by_name = device_trace(
+            lambda: step_fn(ref.state, (xs, ys)))
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    diff = [(n, float((a.double() - b.double()).abs().max()))
+            for n, a, b in zip(paths(ref.state), leaves(resumed.state),
+                               leaves(ref.state)) if not torch.equal(a, b)]
+    losses = [r["loss"] for r in ref_out["metrics"]]
+    secs = np.array([r["sec"] for r in ref_out["metrics"]])
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[train] TrainLoop {TRAIN_STEPS} steps (checkpoint every "
+        f"{TRAIN_SAVE_EVERY}, async, keep 2) under cudnn deterministic: "
+        f"{ref_s:.2f} s, {TRAIN_STEPS / ref_s:.2f} steps/s, "
+        f"{TRAIN_STEPS * TRAIN_BATCH / ref_s:.1f} examples/s; step wall "
+        f"(sync included) p50 {np.percentile(secs, 50) * 1e3:.3f} ms, p90 "
+        f"{np.percentile(secs, 90) * 1e3:.3f} ms; stragglers "
+        f"{sum(r['straggler'] for r in ref_out['metrics'])}")
+    log(f"[train] loss mean over steps 1-10 {first:.4f}, over steps "
+        f"{TRAIN_STEPS - 9}-{TRAIN_STEPS} {last:.4f}; first {losses[0]:.4f}, "
+        f"last {losses[-1]:.4f}; held-out accuracy (batch 10001, "
+        f"{TRAIN_BATCH} examples) {acc:.4f}")
+    log(f"[train] {failed_at}; the relaunch restored step "
+        f"{resumed.start_step} and ran {len(resumed_out['metrics'])} steps; "
+        f"final state of {len(leaves(ref.state))} leaves torch.equal to the "
+        f"uninterrupted run: {not diff}"
+        + (f"; differing leaves {diff[:5]}" if diff else ""))
+    log(f"[train] one traced train step (B {TRAIN_BATCH}): wall {wall:.3f} "
+        f"ms, device busy {busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%, "
+        f"{sum(n_by_name.values())} device activities; by activity: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("a training loss is not finite")
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: {first} -> {last}")
+    if resumed.start_step == 0 or diff:
+        raise AssertionError("the resumed run does not equal the "
+                             "uninterrupted one")
+    if [r["loss"] for r in resumed_out["metrics"]] != losses[
+            resumed.start_step:]:
+        raise AssertionError("the resumed losses differ")
+
+    # -- packed scores against the fp eval logits -------------------------
+    trained = ref.state.params
+    packed = pack_params(model.specs, trained, device=dev)
+    x_eval = torch.from_numpy(xt[:N_REQUESTS]).to(dev)
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                     allow_tf32=False), torch.no_grad():
+        logits, _ = model.apply_fp(trained, x_eval, train=False)
+    x_words = prepare_input_packed(x_eval)
+    scores = forward_packed(model.specs, packed, x_words)
+    if not torch.equal(scores, logits.to(torch.int32)) or not torch.equal(
+            logits, logits.round()):
+        raise AssertionError("fp eval logits differ from the packed scores: "
+                             + fp_packed_divergence(model, trained, packed,
+                                                    x_eval))
+    log(f"[train] fp eval logits on the card equal forward_packed scores of "
+        f"pack_params(trained) on {N_REQUESTS} held-out examples (integers "
+        f"in [{int(scores.min())}, {int(scores.max())}])")
+
+    # -- plan through the store (warm) and serve the trained net ----------
+    store = ProfileStore(f"dir://{store_root}", device=dev)
+    before = dict(store.stats())
+    t0 = time.perf_counter()
+    plan = api.plan_single(model, packed, batch_sizes=PROFILE_BATCHES,
+                           store=store, fuse=True, device=dev)
+    plan_s = time.perf_counter() - t0
+    after = store.stats()
+    hits = after["hits"] - before["hits"]
+    misses = after["misses"] - before["misses"]
+    log(f"[train] api.plan_single(fuse=True, policy dp) through "
+        f"{store.backend.uri()}: {plan_s:.2f} s, store hits {hits}, misses "
+        f"{misses}; {mapping_line(plan.config)}; fused spans "
+        f"{[f[:3] for f in plan.config.fused_segments]}")
+    if hits < 1 or misses:
+        raise AssertionError("plan_single did not warm-start from the store")
+    expected = forward_packed(model.specs, packed, x_words).cpu().numpy()
+    engine = ServingEngine(model, packed, plan.config,
+                           allowed_batch_sizes=plan.table.batch_sizes,
+                           device=dev)
+    engine.step(force=True)
+    reqs = [engine.submit(x_words[i].cpu().numpy())
+            for i in range(N_REQUESTS)]
+    engine.step(force=True)
+    got = np.stack([r.wait(timeout=600) for r in reqs])
+    if not np.array_equal(got, expected):
+        raise AssertionError("served answers of the trained net differ from "
+                             "the plain forward_packed")
+    lat = np.array([r.latency_s for r in reqs]) * 1e3
+    counts = launch_counts()
+    log(f"[train] served {N_REQUESTS} requests of the trained net: equal to "
+        f"the plain forward_packed on CUDA tensors; latency p50 "
+        f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms "
+        f"(phase 5's random-weight net: p50 {serve_p50_ms:.3f} ms); launches "
+        f"over phase 13 {counts}")
+    for name in ("xnor_gemm_cuda", "segment_cuda"):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 13 never launched {name}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[train] phase 13: {seconds:.2f} s")
     return counts, seconds
 
 
@@ -1887,6 +2251,9 @@ def main() -> int:
 
     # -- 12. co-serving: fleet, elastic, cluster --------------------------
     fleet_phase(dev, model, packed, x_req, expected, store_root)
+
+    # -- 13. train, pack, plan and serve ----------------------------------
+    train_phase(dev, store_root, p50s["serve dp"])
     shutil.rmtree(store_root, ignore_errors=True)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -14,6 +14,12 @@ Module names mirror ``repro`` (``repro.core.mapper`` <->
 * the adaptive runtime (:mod:`repro_torch.adapt`), the profile store
   (:mod:`repro_torch.store`) and the cache service
   (:mod:`repro_torch.cachesvc`);
+* BNN training: the fp-sim layers and the STE (:mod:`repro_torch.bnn`),
+  the train step (:mod:`repro_torch.bnn.train`), optimizers
+  (:mod:`repro_torch.optim`), synthetic data (:mod:`repro_torch.data`),
+  checkpoints in the JAX package's format (:mod:`repro_torch.ckpt`), the
+  fault-tolerant loop (:mod:`repro_torch.runtime`) and trees with JAX's
+  leaf order and paths (:mod:`repro_torch.tree`);
 * the LM serving path of the attention families: configs
   (:mod:`repro_torch.configs`), the decoder and its steps
   (:mod:`repro_torch.models`, flash attention as a CUDA kernel) and the

@@ -1,6 +1,8 @@
-"""Packed BNN inference on torch tensors.
+"""The paper's BNNs on torch tensors: packed inference, and the fp-sim
+forward with the straight-through estimator that trains them
+(``layers``' fp-sim half, ``train``).
 
-Conventions (shared with kernels/ and core/):
+Conventions of the packed domain (shared with kernels/ and core/):
   * A binary value is conceptually in {-1, +1}; the stored bit is 1 for +1
     and 0 for -1.
   * Packed tensors are int32 with 32 bits packed along the LAST axis,

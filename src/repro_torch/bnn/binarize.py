@@ -23,6 +23,32 @@ PACK_W = 32  # bits per packed word
 _LOW32 = 0xFFFFFFFF
 
 
+def binarize(x: torch.Tensor) -> torch.Tensor:
+    """Hard sign into {-1, +1}; ties (x == 0) go to +1."""
+    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
+class _BinarizeSTE(torch.autograd.Function):
+    """Sign forward, clipped straight-through estimator backward: the
+    gradient passes where |x| <= 1 (the Hard-Tanh STE of the paper's
+    training recipe [Hubara et al. 2016])."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return binarize(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (x.abs() <= 1.0).to(g.dtype)
+
+
+def binarize_ste(x: torch.Tensor) -> torch.Tensor:
+    """:func:`binarize` with the clipped STE as its gradient."""
+    return _BinarizeSTE.apply(x)
+
+
 def packed_len(n: int) -> int:
     return (n + PACK_W - 1) // PACK_W
 

@@ -1,14 +1,24 @@
-"""BNN layer specs and the packed-integer (inference) per-layer ops.
+"""BNN layer specs, parameter init, fp-sim (training) and packed-integer
+(inference) per-layer implementations.
 
-Packed domain: binary tensors are bit-packed int32 words (see
-``repro_torch.bnn.binarize``); pre-activations are int32; step layers use
-batch-norm folded into integer thresholds (``repro_torch.bnn.fold_bn``).
+Two execution domains:
+
+* **fp-sim** (training): values are float32 in {-1,+1} between layers,
+  integers-as-floats for pre-activations; weights are latent fp32
+  binarized on the forward pass with the straight-through estimator.
+  Plain PyTorch (``F.conv2d``, ``@``) on +-1 operands, as the JAX
+  package composes it from XLA.
+* **packed** (inference): binary tensors are bit-packed int32 words
+  (see ``repro_torch.bnn.binarize``); pre-activations are int32; step
+  layers use batch-norm folded into integer thresholds
+  (``repro_torch.bnn.fold_bn``).
 
 The packed per-layer functions here are the **CPU implementation** in the
 paper's sense — the sequential reference.  The parallel X/Y/Z
 configurations are the CUDA kernels in ``repro_torch.kernels``, selected
 per layer by the HEP mapper.  Every op keeps the JAX package's layouts:
-activations (B, H, W, C) channels-last, conv weights (Cout, 9*Cw) in
+activations (B, H, W, C) channels-last, fp conv weights (3, 3, Cin, Cout)
+HWIO, fp fc weights (Din, Dout), packed conv weights (Cout, 9*Cw) in
 tap-major order.
 """
 
@@ -22,9 +32,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.bnn.binarize import PACK_W, pack_bits
+from repro_torch.bnn.binarize import PACK_W, binarize, binarize_ste, pack_bits
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +108,149 @@ def parse_notation(
             raise ValueError(f"unknown layer token {token!r}")
         shape = specs[-1].out_shape
     return specs
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+
+def init_bnn_params(
+    generator: torch.Generator, specs: Sequence[LayerSpec], device
+) -> list[dict]:
+    """One dict per layer on `device`, drawn from `generator` (on its
+    own device).  Trainable: conv/fc 'w' (latent fp32, uniform in
+    +-1/sqrt(K)), step 'gamma'/'beta'.  State: step 'mean'/'var'
+    (running stats)."""
+    def uniform(shape, scale):
+        w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+        return w.uniform_(-scale, scale, generator=generator).to(device)
+
+    params: list[dict] = []
+    for spec in specs:
+        if spec.kind == "conv":
+            cin = spec.in_shape[-1]
+            params.append({"w": uniform((3, 3, cin, spec.units),
+                                        1.0 / np.sqrt(9 * cin))})
+        elif spec.kind == "fc":
+            din = spec.in_shape[0]
+            params.append({"w": uniform((din, spec.units),
+                                        1.0 / np.sqrt(din))})
+        elif spec.kind == "step":
+            c = spec.units
+            params.append({
+                "gamma": torch.ones(c, device=device),
+                "beta": torch.zeros(c, device=device),
+                "mean": torch.zeros(c, device=device),
+                "var": torch.ones(c, device=device),
+            })
+        else:
+            params.append({})
+    return params
+
+
+TRAINABLE_KEYS = {"w", "gamma", "beta"}
+
+
+def split_trainable(params: list[dict]) -> tuple[list[dict], list[dict]]:
+    train = [
+        {k: v for k, v in p.items() if k in TRAINABLE_KEYS} for p in params
+    ]
+    state = [
+        {k: v for k, v in p.items() if k not in TRAINABLE_KEYS}
+        for p in params
+    ]
+    return train, state
+
+
+def merge_params(train: list[dict], state: list[dict]) -> list[dict]:
+    return [dict(**t, **s) for t, s in zip(train, state)]
+
+
+# ---------------------------------------------------------------------------
+# fp-sim (training) per-layer forwards
+# ---------------------------------------------------------------------------
+
+
+def conv_fp(x: torch.Tensor, w_latent: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME binary conv on {-1,+1} inputs (B,H,W,C); pad value -1
+    (the binary domain has no zero), then a VALID conv.  Output is
+    integer-valued float32 (B,H,W,Cout).  The NHWC input seen as NCHW is
+    a channels-last tensor, which cuDNN takes without a copy."""
+    wb = binarize_ste(w_latent)                       # (3,3,Cin,Cout)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=-1.0)
+    y = F.conv2d(xp.permute(0, 3, 1, 2), wb.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+def maxpool_fp(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max pool as a reshape and ``amax``: like the JAX package's
+    ``max``, ``amax`` splits the gradient evenly among tied maxima
+    (``F.max_pool2d`` would give it all to one)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def step_fp(
+    x: torch.Tensor, p: dict, *, train: bool
+) -> tuple[torch.Tensor, dict]:
+    """Batch norm + binary activation (Hard-Tanh STE).  Returns output
+    and updated running-stat dict.  In train mode the gradient flows
+    through the batch mean and (population) variance; the running-stat
+    update takes them detached."""
+    axes = tuple(range(x.ndim - 1))
+    if train:
+        mean = x.mean(dim=axes)
+        var = x.var(dim=axes, correction=0)
+        m, v = mean.detach(), var.detach()
+        new_state = {
+            "mean": (1 - BN_MOMENTUM) * p["mean"] + BN_MOMENTUM * m,
+            "var": (1 - BN_MOMENTUM) * p["var"] + BN_MOMENTUM * v,
+        }
+    else:
+        mean, var = p["mean"], p["var"]
+        new_state = {"mean": p["mean"], "var": p["var"]}
+    y = (x - mean) * torch.rsqrt(var + BN_EPS) * p["gamma"] + p["beta"]
+    return binarize_ste(y), new_state
+
+
+def fc_fp(x: torch.Tensor, w_latent: torch.Tensor) -> torch.Tensor:
+    return x @ binarize_ste(w_latent)
+
+
+def forward_fp(
+    specs: Sequence[LayerSpec],
+    params: list[dict],
+    x_pm1: torch.Tensor,
+    *,
+    train: bool = False,
+) -> tuple[torch.Tensor, list[dict]]:
+    """Full fp-sim forward on a {-1,+1} input batch (B,H,W,C).  Returns
+    (logits, params-with-updated-bn-state)."""
+    new_params = []
+    x = x_pm1
+    for spec, p in zip(specs, params):
+        if spec.kind == "conv":
+            x = conv_fp(x, p["w"])
+            new_params.append(p)
+        elif spec.kind == "mp":
+            x = maxpool_fp(x)
+            new_params.append(p)
+        elif spec.kind == "step":
+            x, new_state = step_fp(x, p, train=train)
+            new_params.append({**p, **new_state})
+        elif spec.kind == "flat":
+            x = x.reshape(x.shape[0], -1)
+            new_params.append(p)
+        elif spec.kind == "fc":
+            x = fc_fp(x, p["w"])
+            new_params.append(p)
+    return x, new_params
+
+
+def binarize_input(x01: torch.Tensor) -> torch.Tensor:
+    """Map images in [0,1] to {-1,+1} (threshold 0.5)."""
+    return binarize(x01 - 0.5)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Paper BNN models (Tables I & II) + packed-inference parameter
 preparation.
 
-`build_model` returns a :class:`BNNModel` whose `specs` drive the
-per-layer packed inference used by the HEP mapper.  Weights cross
-between the JAX package and this one as NumPy arrays: fp weights into
-:func:`pack_params`, or already-packed parameters into
+`build_model` returns a :class:`BNNModel` whose `specs` drive both the
+fp-sim training forward and the per-layer packed inference used by the
+HEP mapper.  Weights cross between the JAX package and this one as
+NumPy arrays: fp weights into :func:`fp_params_from_numpy` (to train or
+evaluate) or :func:`pack_params`, already-packed parameters into
 :func:`packed_params_from_numpy`.
 """
 
@@ -40,6 +41,17 @@ class BNNModel:
     input_hw: tuple
     in_channels: int
     n_classes: int
+
+    def init(self, generator: torch.Generator, device=None) -> list[dict]:
+        """Latent fp params drawn from `generator`, on `device`
+        (``None`` -> ``cuda``)."""
+        return L.init_bnn_params(generator, self.specs, resolve_device(device))
+
+    def apply_fp(self, params, x01, *, train=False):
+        """[0,1] images -> (logits, params with updated BN state), the
+        fp-sim path."""
+        x = L.binarize_input(x01)
+        return L.forward_fp(self.specs, params, x, train=train)
 
 
 _REGISTRY = {
@@ -103,6 +115,25 @@ def random_fp_params(specs: Sequence[L.LayerSpec], seed: int) -> list[dict]:
     return params
 
 
+def fp_params_from_numpy(params_np: list[dict], device=None) -> list[dict]:
+    """fp params as NumPy (a list of dicts of arrays, e.g. the JAX
+    package's params through ``np.asarray``, or :func:`random_fp_params`)
+    -> this package's float32 tensors on `device` (``None`` -> ``cuda``),
+    in the same layout."""
+    dev = resolve_device(device)
+    return [
+        {k: torch.as_tensor(np.array(v, np.float32, order="C"), device=dev)
+         for k, v in p.items()}
+        for p in params_np
+    ]
+
+
+def _host(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
 # ---------------------------------------------------------------------------
 # Packed-inference parameter preparation
 # ---------------------------------------------------------------------------
@@ -111,8 +142,8 @@ def random_fp_params(specs: Sequence[L.LayerSpec], seed: int) -> list[dict]:
 def pack_params(
     specs: Sequence[L.LayerSpec], params: list[dict], *, device=None
 ) -> list[dict]:
-    """Quantize fp params (NumPy arrays) into packed inference params
-    on `device` (``None`` -> ``cuda``).
+    """Quantize fp params (NumPy arrays or tensors on any device) into
+    packed inference params on `device` (``None`` -> ``cuda``).
 
     conv:  w (3,3,Cin,Cout) -> words (Cout, 9*ceil(Cin/32)), tail bit 1
     fc:    w (Din,Dout)     -> words (Dout, ceil(Din/32)),   tail bit 1
@@ -121,7 +152,7 @@ def pack_params(
     packed: list[dict] = []
     for spec, p in zip(specs, params):
         if spec.kind == "conv":
-            w = np.asarray(p["w"])              # (3,3,Cin,Cout)
+            w = _host(p["w"])                   # (3,3,Cin,Cout)
             cin, cout = w.shape[2], w.shape[3]
             # (Cout, 9, Cin): patch order must match extract_patch_words
             # (dy-major, dx-minor)
@@ -131,11 +162,12 @@ def pack_params(
                 {"w_words": words.reshape(cout, -1), "k_true": 9 * cin}
             )
         elif spec.kind == "fc":
-            w = np.asarray(p["w"])              # (Din, Dout)
+            w = _host(p["w"])                   # (Din, Dout)
             words = np_pack_bits(np.sign(w.T) + 0.5, pad_bit=1)
             packed.append({"w_words": words, "k_true": w.shape[0]})
         elif spec.kind == "step":
-            t, f = fold_bn(p["gamma"], p["beta"], p["mean"], p["var"])
+            t, f = fold_bn(*(_host(p[k])
+                             for k in ("gamma", "beta", "mean", "var")))
             packed.append({"thresh": t, "flip": f})
         else:
             packed.append({})

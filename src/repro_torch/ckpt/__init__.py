@@ -1,0 +1,12 @@
+"""Fault-tolerant checkpointing: atomic writes, keep-N GC, exact
+resume, async save; the JAX package's on-disk format."""
+
+from repro_torch.ckpt.checkpoint import (
+    CheckpointManager,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "CheckpointManager"]

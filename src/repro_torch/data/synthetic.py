@@ -1,0 +1,88 @@
+"""Synthetic datasets (the machines this runs on are offline: no
+Fashion-MNIST / CIFAR-10 downloads).
+
+Images: class-conditional prototype + noise, thresholdable at 0.5 so a
+BNN can learn them (stands in for Fashion-MNIST / CIFAR-10).  Pure
+NumPy, the JAX package's function line for line: the same seed gives
+``np.array_equal`` arrays in both packages.
+
+Tokens: a k-gram Markov language over a given vocab, so an LM's loss can
+fall within a few hundred steps.  The JAX package draws it from
+``jax.random``, whose bits torch cannot reproduce, so this stream is the
+port's own: it keeps the reference's properties (a pure function of
+``(seed, step)``, so training resumes exactly; each step's tokens
+differ; the next token depends on the last ``order`` tokens through a
+fixed random transition law), not its bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageDataset:
+    x: np.ndarray  # (N, H, W, C) float32 in [0,1]
+    y: np.ndarray  # (N,) int32
+    n_classes: int
+
+
+def make_image_dataset(
+    seed: int,
+    n: int,
+    hw: tuple,
+    channels: int,
+    n_classes: int = 10,
+    noise: float = 0.35,
+) -> ImageDataset:
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    protos = rng.random((n_classes, h, w, channels)).astype(np.float32)
+    y = rng.integers(0, n_classes, size=n).astype(np.int32)
+    eps = rng.normal(0.0, noise, size=(n, h, w, channels)).astype(np.float32)
+    x = np.clip(protos[y] + eps, 0.0, 1.0)
+    return ImageDataset(x=x, y=y, n_classes=n_classes)
+
+
+def _generator(*words: int) -> torch.Generator:
+    """A CPU generator seeded by a hash of `words` (NumPy's
+    ``SeedSequence``: stable across runs and platforms)."""
+    seed = int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(seed & (2**63 - 1))
+
+
+def make_token_stream(
+    seed: int, vocab: int, order: int = 2, temperature: float = 0.5
+):
+    """Returns ``sample(step, batch, seq)`` -> int32 CPU tokens (batch,
+    seq) drawn from a fixed random k-gram process: a pure function of
+    ``(seed, step)``, so resumable.  The next token given the context
+    ``ctx`` is drawn from ``softmax(logits(h) / temperature)``, where
+    ``h = sum(ctx * folds)`` and ``logits(h)`` is a standard normal
+    vector from a generator seeded by ``(seed, 13, h)``."""
+    folds = torch.randint(1, 2**20, (order,), generator=_generator(seed, 7),
+                          dtype=torch.int64)
+
+    def sample(step: int, batch: int, seq: int) -> torch.Tensor:
+        gen = _generator(seed, 1, step)
+        ctx = torch.randint(0, vocab, (batch, order), generator=gen,
+                            dtype=torch.int64)
+        table: dict = {}
+        toks = torch.empty((batch, seq), dtype=torch.int64)
+        for i in range(seq):
+            h = (ctx * folds).sum(dim=-1).tolist()
+            for hh in h:
+                if hh not in table:
+                    table[hh] = torch.randn(
+                        vocab, generator=_generator(seed, 13, hh))
+            logits = torch.stack([table[hh] for hh in h]) / temperature
+            nxt = torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                    generator=gen)[:, 0]
+            toks[:, i] = nxt
+            ctx = torch.cat([ctx[:, 1:], nxt[:, None]], dim=1)
+        return toks.to(torch.int32)
+
+    return sample

@@ -485,3 +485,118 @@ def test_elastic_engine_level_switch_serves_equal_to_the_plain_path(dev):
     assert engine.level_switches == 2
     assert xnor_gemm_cuda.launches > before[0]
     assert segment_cuda.launches == before[1] + 1
+
+
+def _train_setup(dev_or_cpu, seed=0):
+    """A full-width Fashion-MNIST TrainState on `dev_or_cpu` from one
+    CPU generator's init, its AdamW and a data batch."""
+    from repro_torch.bnn import layers as T_L
+    from repro_torch.bnn.train import TrainState, init_train_state
+    from repro_torch.data import ShardedBatcher, make_image_dataset
+
+    m = T_M.build_model("fashion_mnist")
+    init, opt = init_train_state(m, torch.Generator().manual_seed(seed),
+                                 lr=2e-3, device="cpu")
+    params = T_M.fp_params_from_numpy(
+        [{k: v.numpy() for k, v in p.items()} for p in init.params],
+        dev_or_cpu)
+    state = TrainState(params, opt.init(T_L.split_trainable(params)[0]),
+                       torch.zeros((), dtype=torch.int32, device=dev_or_cpu))
+    ds = make_image_dataset(0, 256, (28, 28), 1)
+    bt = ShardedBatcher(n=256, global_batch=32, seed=0)
+    return m, opt, state, ds, bt
+
+
+def _grads(m, state, x, y):
+    """The loss gradient of every trainable leaf, as ``train_step``
+    takes it, keyed by its path in the TrainState."""
+    from repro_torch.bnn import layers as T_L
+    from repro_torch.bnn.train import cross_entropy
+    from repro_torch.tree import flatten, paths, unflatten
+
+    dev = state.step.device
+    trainable, bn = T_L.split_trainable(state.params)
+    flat, tdef = flatten(trainable)
+    live = [t.detach().requires_grad_(True) for t in flat]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        logits, _ = m.apply_fp(T_L.merge_params(unflatten(tdef, live), bn),
+                               torch.as_tensor(x, device=dev), train=True)
+        loss = cross_entropy(logits, torch.as_tensor(y, device=dev))
+        got = torch.autograd.grad(loss, live)
+    return {f".params/{n}": g.cpu() for n, g in zip(paths(trainable), got)}
+
+
+def test_train_step_on_the_card_matches_the_cpu_step(dev):
+    """One STE step on the card against the same step on CPU tensors:
+    loss and grad_norm within a relative 1e-5, each gradient within 1e-5
+    of its largest magnitude; after the first AdamW step (g / (|g| +
+    1e-8) x lr) every w, gamma and beta within 0.05 x lr where the
+    clipped gradient is at least 1e-6, and within one step either way
+    (2 x lr) below that, where rounding decides the step's size; running
+    stats within 1e-5 (mean) and 1e-4 (var) of their largest
+    magnitude."""
+    from repro_torch.bnn.train import train_step
+    from repro_torch.tree import leaves, paths
+
+    lr = 2e-3
+    m, opt, cpu_state, ds, bt = _train_setup("cpu")
+    _, _, dev_state, _, _ = _train_setup(dev)
+    x, y = bt.batch((ds.x, ds.y), 0)
+    cpu_g, dev_g = _grads(m, cpu_state, x, y), _grads(m, dev_state, x, y)
+    cpu_state, cpu_m = train_step(m, opt, cpu_state, x, y)
+    dev_state, dev_m = train_step(m, opt, dev_state, x, y)
+    assert dev_state.step.device == dev
+    for k in ("loss", "grad_norm"):
+        assert float(dev_m[k]) == pytest.approx(float(cpu_m[k]), rel=1e-5)
+    clip = min(1.0, 1.0 / (float(cpu_m["grad_norm"]) + 1e-9))
+    for name, a, b in zip(paths(cpu_state), leaves(dev_state),
+                          leaves(cpu_state)):
+        assert a.device == dev, name
+        d = (a.cpu() - b).abs()
+        kind = name.rsplit("/", 1)[-1]
+        if kind in ("mean", "var"):
+            rtol = 1e-4 if kind == "var" else 1e-5
+            assert float(d.max()) <= rtol * float(b.abs().max()), name
+        elif name.startswith(".params"):
+            g = cpu_g[name]
+            assert float((dev_g[name] - g).abs().max()) <= 1e-5 * float(
+                g.abs().max()), name
+            firm = (clip * g).abs() >= 1e-6
+            assert float(d[firm].max()) <= 0.05 * lr, name
+            assert float(d.max()) <= 2 * lr, name
+
+
+def test_train_loop_resumes_on_the_card_equal_to_the_uninterrupted_run(
+        dev, tmp_path):
+    """``TrainLoop`` on the card under cuDNN deterministic: a failure
+    after step 3, a relaunch from the step-2 checkpoint (restored onto
+    the card), a final state ``torch.equal`` to an uninterrupted run."""
+    from repro_torch.bnn.train import train_step
+    from repro_torch.runtime import InjectedFailure, LoopConfig, TrainLoop
+    from repro_torch.tree import leaves
+
+    def loop(name, inject=None):
+        m, opt, state, ds, bt = _train_setup(dev)
+        cfg = LoopConfig(total_steps=6, ckpt_dir=str(tmp_path / name),
+                         save_every=2, async_save=True,
+                         inject_failure_at=inject)
+        return TrainLoop(lambda s, b: train_step(m, opt, s, *b),
+                         lambda step: bt.batch((ds.x, ds.y), step), state,
+                         cfg)
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        ref = loop("ref")
+        ref_out = ref.run()
+        crash = loop("crash", inject=3)
+        with pytest.raises(InjectedFailure):
+            crash.run()
+        crash.mgr.wait()        # the crashed run's async write lands first
+        resumed = loop("crash")
+        out = resumed.run()
+    assert resumed.start_step == 2
+    for a, b in zip(leaves(resumed.state), leaves(ref.state)):
+        assert a.device == dev and torch.equal(a, b)
+    assert [r["loss"] for r in out["metrics"]] == [
+        r["loss"] for r in ref_out["metrics"]][2:]

@@ -78,10 +78,12 @@ def test_scan_covers_the_whole_port():
             "backends.py", "workqueue.py", "jobs.py", "service.py",
             "api.py", "ledger.py", "scheduler.py", "router.py", "subnet.py",
             "planner.py", "dispatch.py", "placement.py", "host.py",
-            "cluster.py"} <= names
+            "cluster.py", "tree.py", "train.py", "optimizers.py",
+            "schedules.py", "compression.py", "synthetic.py", "loader.py",
+            "checkpoint.py", "loop.py"} <= names
     packages = {p.parent.name for p in SCANNED if p.name == "__init__.py"}
     assert {"adapt", "store", "cachesvc", "fleet", "elastic",
-            "cluster"} <= packages
+            "cluster", "optim", "data", "ckpt", "runtime"} <= packages
 
 
 @pytest.mark.parametrize(
@@ -141,10 +143,15 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
     "greedy_decode", "init_params", "launch.serve", "api.plan_single",
     "api.plan_fleet", "api.Deployment.plan", "api.Deployment.serve",
     "cluster.Cluster", "elastic.ElasticEngine", "elastic.plan_family",
+    "init_train_state", "BNNModel.init", "fp_params_from_numpy",
+    "train_state_from_numpy",
 ])
 def test_entry_points_raise_without_a_card(entry):
     from repro_torch import api, configs
-    from repro_torch.bnn.models import pack_params, random_fp_params
+    from repro_torch.bnn.models import (
+        fp_params_from_numpy, pack_params, random_fp_params,
+    )
+    from repro_torch.bnn.train import init_train_state, train_state_from_numpy
     from repro_torch.cluster import Cluster
     from repro_torch.elastic import ElasticEngine, plan_family
     from repro_torch.core import (
@@ -193,6 +200,12 @@ def test_entry_points_raise_without_a_card(entry):
         "elastic.ElasticEngine": lambda: ElasticEngine(levels),
         "elastic.plan_family": lambda: plan_family(
             levels.family, batch_sizes=(2,), repeats=1),
+        "init_train_state": lambda: init_train_state(m, gen),
+        "BNNModel.init": lambda: m.init(gen),
+        "fp_params_from_numpy": lambda: fp_params_from_numpy(
+            random_fp_params(m.specs, 0)),
+        "train_state_from_numpy": lambda: train_state_from_numpy(
+            init_train_state(m, gen, device="cpu")[0]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
