@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    instantiation without BMMA, fails the run;
 2b. the card tests, ``pytest -m cuda tests/test_torch_cuda.py`` in a
    child process: each kernel against its plain version over more
-   shapes than the phases below (flash attention at head dims 32/64/128,
+   shapes than the phases below (flash attention at head dims
+   32/64/112/128,
    GQA groups 1/2/7, ragged S, strided views with an offset, the
    alignment refusal; ``segment_cuda`` at B 1/8/16/33 on both paper
    nets and three spans); any failure fails the run;
@@ -35,7 +36,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the plain ``flash_attention_plain`` (f32 at 1e-4: only the order of
    the f32 sums differs; bf16 at 2e-2, the JAX bf16 test's tolerance:
    the tensor-core path rounds P to bf16 for P.V, an error of the size
-   of the bf16 output's own rounding), bf16 at head dims 32, 64, 128;
+   of the bf16 output's own rounding), bf16 at head dims 32, 64, 112,
+   128 (f32 at 112 too), and the deepseek-moe-16b and zamba2-7b prefill
+   shapes;
 4b. LM serving at full width: qwen2-0.5B (24 layers, d_model 896) with
    random weights from a seeded generator on the card.  An f32 check
    (B 2 x S 256: last-position logits through the kernel against the
@@ -44,9 +47,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    2048-token prompts (NumPy seed 0), the teacher-forced decode logits
    against a full forward with the plain attention, and one traced
    prefill for the card's idle share;
-4c. kernel 3 timing at the prefill shape, beside its bound and
+4c. kernel 3 timing at the qwen2-0.5B, deepseek-moe-16b (D 128) and
+   zamba2-7b (D 112) prefill shapes, each beside its bound and
    ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
    (timed here only; the port never calls it);
+4d. the MoE, SSM and hybrid families at full width (``family_phase``),
+   one model at a time, each freed before the next: deepseek-moe-16b
+   (28 layers, 64 routed experts top-6 + 2 shared), zamba2-7b (81
+   Mamba2 layers, 13 shared-block applications at head dim 112) and
+   mamba2-130m (24 layers, attention-free), bf16 with seeded random
+   weights on the card.  Each: f32 checks (deepseek cut to 2 layers,
+   the others whole; last-position logits through the kernel against
+   the plain attention, for mamba2-130m the card against CPU tensors,
+   and the teacher-forced decode path against the full forward; <=
+   1e-4), ``greedy_decode`` of 32 tokens from 4 x 2048-token prompts
+   (``flash_attention_cuda`` must launch 28, 13 and 0 times), the
+   teacher-forced bf16 check (deepseek under capacity_factor 16, which
+   must drop nothing, held at the positions whose routing agreed in
+   every layer; the limit in ``FAMILY_ARCHS``' comment), and one traced
+   prefill;
 5. main path at full width: random fp weights from NumPy seed 0 ->
    ``pack_params`` -> measured ``profile_bnn_model`` (through a fresh
    ``ProfileStore("dir://...").get_or_profile``, which saves it) -> DP
@@ -167,7 +186,8 @@ such traces fail the run.
 
 The launch counts are zeroed just before each main path and read just
 after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
-launch once per layer of the prefill, 24 times), phases 5-6 up to
+launch once per layer of the prefill, 24 times), phase 4d's three
+``greedy_decode`` runs (28, 13 and 0 launches), phases 5-6 up to
 phase 6's untraced serving (both BNN kernels must have launched while
 serving), phase 9's adaptive serving (``segment_cuda``), phase 10's
 explore job (``xnor_gemm_cuda``), phase 11's autotune sweep and
@@ -180,6 +200,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -259,7 +280,41 @@ FLASH_CASES = tuple(
     ("ragged S 2000", 4, 14, 2, 2000, 2000, 64, "bfloat16", True),
     ("Sq 1 / Sk 2048", 4, 14, 2, 1, 2048, 64, "bfloat16", True),
     ("Sq 1 / Sk 2048 f32", 4, 14, 2, 1, 2048, 64, "float32", True),
+    ("bf16 D112 ragged full", 1, 4, 4, 77, 130, 112, "bfloat16", False),
+    ("bf16 D112 GQA 7", 2, 14, 2, 200, 200, 112, "bfloat16", True),
+    ("f32 D112 GQA 7", 2, 14, 2, 200, 200, 112, "float32", True),
+    ("f32 D112 full", 1, 4, 4, 77, 130, 112, "float32", False),
+    ("deepseek prefill", 4, 16, 16, 2048, 2048, 128, "bfloat16", True),
+    ("zamba2 prefill", 4, 32, 32, 2048, 2048, 112, "bfloat16", True),
 )
+# kernel 3 is timed (phase 4c) at these models' prefill shapes: B
+# LM_BATCH, S LM_PROMPT, their heads and head dims
+FLASH_TIMED = ("qwen2_0_5b", "deepseek_moe_16b", "zamba2_7b")
+# the MoE, SSM and hybrid families at full width (phase 4d): flash
+# launches per prefill (one per attention-block application); the depth
+# of each f32 check (None: the whole model; deepseek's 67.5 GB of f32
+# weights do not fit beside its activations), where the kernel is held
+# to the plain attention (mamba2-130m: the card to CPU tensors) and the
+# teacher-forced decode path to the full forward, both within
+# LM_F32_REL; the teacher-forced check's batch, prompt and decode
+# steps; the capacity factor under which deepseek's check must drop
+# nothing (decode's C = 4 for one token, prefill's 744 and more); and
+# the share of (token, layer) top-k sets that must agree between
+# deepseek's two bf16 paths (routing flips there are real: a bf16
+# rounding moves a gate across the top-k boundary).  The bf16
+# teacher-forced logits are held to LM_BF16_REL (phase 4b's), or, where
+# the f32 check ran at full depth, to the bf16 full forward's own
+# distance from the f32 one if that is larger: two bf16 computations of
+# one function are held to bf16's own error, not below it (zamba2-7b's
+# 81 + 13 blocks drift 0.12 from f32, its decode path 0.11;
+# tools/lm_bf16_drift.py)
+FAMILY_ARCHS = ("deepseek_moe_16b", "zamba2_7b", "mamba2_130m")
+FAMILY_FLASH = {"deepseek_moe_16b": 28, "zamba2_7b": 13, "mamba2_130m": 0}
+FAMILY_F32_DEPTH = {"deepseek_moe_16b": 2, "zamba2_7b": None,
+                    "mamba2_130m": None}
+TF_BATCH, TF_PROMPT, TF_STEPS = 2, 512, 16
+TF_CAPACITY = 16.0
+ROUTE_AGREE_FLOOR = 0.5
 # co-serving (phase 12): the batch the fleet is mapped and served at,
 # requests per tenant under each fleet mapping, the width levels of the
 # elastic family, and the quality bursts (requests, rounds; the deadline
@@ -1262,6 +1317,316 @@ def train_phase(dev, store_root, serve_p50_ms: float) -> tuple:
     return counts, seconds
 
 
+def flash_timing(dev, gen, shape) -> dict:
+    """Kernel 3 at one prefill shape (B, H, Hkv, S, D), bf16, causal, on
+    (B,S,H,D) tensors seen as (B,H,S,D), as the models hand it: device
+    ms per launch from the trace, ms per call, the plain version's ms,
+    ``scaled_dot_product_attention``'s ms (a yardstick), and the bound:
+    2 * 2 * B * H * S * S * D / 2 FLOP over the bf16 rate, or q, k, v
+    and o once over the memory rate, whichever is longer."""
+    import torch
+    from repro_torch.kernels import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    B, H, Hkv, S, D = shape
+
+    def randn(*dims):
+        return torch.randn(dims, generator=gen).to(dev, torch.bfloat16)
+
+    q = randn(B, S, H, D).transpose(1, 2)
+    k = randn(B, S, Hkv, D).transpose(1, 2)
+    v = randn(B, S, Hkv, D).transpose(1, 2)
+    ms, how = kernel_ms(lambda: flash_attention_cuda(q, k, v),
+                        "flash_attention_kernel", 20)
+    call = time_ms(lambda: flash_attention_cuda(q, k, v), 20)
+    plain = time_ms(lambda: flash_attention_plain(q, k, v), 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        lib = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                   enable_gqa=True), 20)
+        lib_how = "enable_gqa"
+    except TypeError:   # a PyTorch without enable_gqa: k/v expanded first
+        ke = k.repeat_interleave(H // Hkv, dim=1)
+        ve = v.repeat_interleave(H // Hkv, dim=1)
+        lib = time_ms(lambda: sdpa(q, ke, ve, is_causal=True), 20)
+        lib_how = "k/v expanded"
+    flops = 2 * 2 * B * H * S * S * D * 0.5
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q,k,v,o
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": ms, "how": how, "call_ms": call, "plain_ms": plain,
+            "library_ms": lib, "library_how": lib_how, "flops": flops,
+            "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """The expert ids of every ``moe_ffn`` call made in the block, in call
+    order (one (tokens, k) tensor per MoE layer per forward): the port's
+    ``moe.route`` wrapped for the block's duration."""
+    from repro_torch.models import moe
+
+    calls: list = []
+    route = moe.route
+
+    def recording(logits, top_k):
+        gates, ids = route(logits, top_k)
+        calls.append(ids)
+        return gates, ids
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def topk_sets(calls: list, batch: int):
+    """(L, B, S, k) sorted expert ids from a run of forwards' recorded
+    calls: layer l's calls are every L-th one, their tokens appended in
+    call order (a prefill, then one token per decode step)."""
+    import torch
+
+    return [torch.cat([c.reshape(batch, -1, c.shape[-1]) for c in layer],
+                      dim=1).sort(dim=-1).values
+            for layer in calls]
+
+
+def dropped_choices(calls: list, batch: int, cfg) -> int:
+    """Choices past their expert's capacity over the recorded calls, each
+    call's groups (batch rows) counted as ``moe_ffn`` dispatches them."""
+    import torch
+    from repro_torch.models.moe import capacity
+
+    n = 0
+    for ids in calls:
+        per_group = ids.reshape(batch, -1)
+        tg = per_group.shape[1] // cfg.moe.top_k
+        counts = torch.zeros((batch, cfg.moe.n_experts), dtype=torch.int64,
+                             device=ids.device)
+        counts.scatter_add_(1, per_group, torch.ones_like(per_group))
+        n += int((counts - capacity(cfg, tg)).clamp(min=0).sum())
+    return n
+
+
+def family_phase(dev) -> dict:
+    """Phase 4d: deepseek-moe-16b, zamba2-7b and mamba2-130m at full
+    width, one at a time; returns {arch: flash launches of its
+    ``greedy_decode``}."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as lm_configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import modules as lm_modules
+    from repro_torch.models import steps as lm_steps
+    from repro_torch.models import transformer as lm
+
+    plain_attn = lm_modules.chunked_attention_plain
+    t_phase = time.perf_counter()
+    launches = {}
+    p0 = TF_PROMPT - TF_STEPS
+
+    def rel_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    def tokens(cfg, b, s):
+        return torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (b, s))).to(dev)
+
+    def by_layer(calls, n_layers):
+        return [calls[i::n_layers] for i in range(n_layers)]
+
+    def teacher_forced(c, params, seq):
+        """The logits at the last TF_STEPS positions of `seq` two ways:
+        a prefill of the first p0 tokens through the kernel, then one
+        decode step per position; and a full forward with the plain
+        attention.  With each path's recorded routing."""
+        serve_step = lm_steps.make_serve_step(c)
+        with routing_recorded() as rec_dec:
+            last, cache = lm_steps.make_prefill_step(c)(params, seq[:, :p0])
+            cache = lm_steps.decode_cache(c, cache, TF_PROMPT, device=dev)
+            dec = [last]
+            for t in range(TF_STEPS - 1):
+                logits, cache = serve_step(params, cache,
+                                           seq[:, p0 + t:p0 + t + 1])
+                dec.append(logits)
+            del cache
+        with routing_recorded() as rec_full:
+            ref, _, _ = lm.forward(c, params, seq, attention=plain_attn)
+        return torch.stack(dec, dim=1), ref[:, p0 - 1:], rec_dec, rec_full
+
+    for arch in FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = lm_configs.get(arch)
+        tag = f"[{arch}]"
+        cfg_tf = cfg
+        if cfg.moe:
+            cfg_tf = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=TF_CAPACITY))
+        seq = tokens(cfg, TF_BATCH, TF_PROMPT - 1)
+        attn_free = FAMILY_FLASH[arch] == 0
+        how = ("chunked prefill {} + {} recurrent decode steps vs the "
+               "chunked full forward" if attn_free else
+               "prefill {} through the kernel + {} decode steps vs a full "
+               "forward with the plain attention").format(p0, TF_STEPS - 1)
+
+        # -- f32: the kernel against the plain attention (or the card
+        # against CPU tensors, attention-free), then teacher-forced -------
+        depth = FAMILY_F32_DEPTH[arch] or cfg.n_layers
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=depth)
+        p32 = lm.init_params(cfg32, generator(), dev)
+        toks = tokens(cfg, LM_CHECK_BATCH, LM_CHECK_LEN)
+        with routing_recorded() as rec:
+            lk, _, aux_k = lm.forward(cfg32, p32, toks, last_only=True)
+            n_k = len(rec)
+            if attn_free:
+                lp, _, _ = lm.forward(cfg32, tree_to(p32, "cpu"), toks.cpu(),
+                                      last_only=True)
+                other = "the same forward on CPU tensors"
+            else:
+                lp, _, _ = lm.forward(cfg32, p32, toks, last_only=True,
+                                      attention=plain_attn)
+                other = "the plain attention"
+        lp = lp.to(dev)
+        rel32 = rel_err(lk, lp)
+        note = ""
+        if cfg.moe:
+            a = topk_sets(by_layer(rec[:n_k], depth), LM_CHECK_BATCH)
+            b = topk_sets(by_layer(rec[n_k:], depth), LM_CHECK_BATCH)
+            differ = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+            note = (f"; (token, layer) top-{cfg.moe.top_k} sets that differ "
+                    f"between the paths: {differ} of "
+                    f"{LM_CHECK_BATCH * LM_CHECK_LEN * depth}; aux "
+                    f"{float(aux_k):.6f}")
+        if not (torch.isfinite(lk).all() and rel32 <= LM_F32_REL):
+            raise AssertionError(f"{arch} f32 logits: rel {rel32} against "
+                                 f"{other}")
+        log(f"{tag} f32 {depth} layers, B={LM_CHECK_BATCH} "
+            f"S={LM_CHECK_LEN}: last-position logits against {other}, "
+            f"relative max error {rel32:.3e} (limit {LM_F32_REL}){note}")
+        del lk, lp
+        tf32 = dataclasses.replace(cfg_tf, dtype="float32", n_layers=depth)
+        dec, ref, _, _ = teacher_forced(tf32, p32, seq)
+        rel_tf32 = rel_err(dec, ref)
+        if not (torch.isfinite(dec).all() and rel_tf32 <= LM_F32_REL):
+            raise AssertionError(f"{arch} f32 teacher-forced logits: rel "
+                                 f"{rel_tf32}")
+        # the f32 full forward at full depth: the truth bf16 drifts from
+        truth = ref if depth == cfg.n_layers else None
+        log(f"{tag} teacher-forced f32 {depth} layers B={TF_BATCH} prompt "
+            f"{TF_PROMPT} ({how}): relative max error {rel_tf32:.3e} "
+            f"(limit {LM_F32_REL})")
+        del p32, dec, ref
+        torch.cuda.empty_cache()
+
+        # -- bf16: greedy_decode at full width ------------------------------
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, generator(), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompt = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+        prompt_t = torch.from_numpy(prompt).to(dev)
+        lm_steps.greedy_decode(cfg, params, prompt[:, :128], n_steps=2,
+                               max_len=130, device=dev)          # warm-up
+        stats: dict = {}
+        reset_launch_counts()
+        toks_out = lm_steps.greedy_decode(
+            cfg, params, prompt, n_steps=LM_GEN, max_len=LM_PROMPT + LM_GEN,
+            device=dev, stats=stats)
+        counts = launch_counts()
+        launches[arch] = counts["flash_attention_cuda"]
+        if launches[arch] != FAMILY_FLASH[arch]:
+            raise AssertionError(
+                f"{arch}: flash_attention_cuda launched {launches[arch]} "
+                f"times in one prefill, {FAMILY_FLASH[arch]} expected")
+        if toks_out.shape != (LM_BATCH, LM_GEN) or not bool(
+                ((toks_out >= 0) & (toks_out < cfg.vocab)).all()):
+            raise AssertionError(f"{arch} greedy tokens "
+                                 f"{tuple(toks_out.shape)}")
+        decode_ms = stats["decode_s"] * 1e3 / stats["decode_steps"]
+        tok_s = LM_BATCH * LM_GEN / (stats["prefill_s"] + stats["decode_s"])
+        log(f"{tag} bf16 {cfg.n_params() / 1e9:.3f} B parameters drawn on "
+            f"the card in {init_s:.2f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; "
+            f"greedy_decode B={LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
+            f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{decode_ms:.3f} ms/token, {tok_s:.1f} tokens/s; launches "
+            f"{counts}; sample {toks_out[0, :8].tolist()}")
+
+        # -- bf16 teacher-forced ---------------------------------------------
+        dec, ref, rec_dec, rec_full = teacher_forced(cfg_tf, params, seq)
+        held = torch.ones(dec.shape[:2], dtype=torch.bool, device=dev)
+        note = ""
+        if cfg.moe:
+            drops = dropped_choices(rec_dec + rec_full, TF_BATCH, cfg_tf)
+            if drops:
+                raise AssertionError(f"{arch}: {drops} choices dropped under "
+                                     f"capacity_factor {TF_CAPACITY}")
+            a = torch.stack(topk_sets(by_layer(rec_dec, cfg.n_layers),
+                                      TF_BATCH))
+            b = torch.stack(topk_sets(by_layer(rec_full, cfg.n_layers),
+                                      TF_BATCH))
+            agree = (a == b).all(-1)                    # (L, B, S)
+            share = float(agree.float().mean())
+            per_layer = agree.float().mean((1, 2)).tolist()
+            held = agree[:, :, p0 - 1:].all(0)          # (B, STEPS)
+            note = (f"; 0 choices dropped; routing: {share:.4f} of "
+                    f"{agree.numel()} (token, layer) top-{cfg.moe.top_k} "
+                    f"sets agree (floor {ROUTE_AGREE_FLOOR}), by layer "
+                    f"{[round(x, 3) for x in per_layer]}; {int(held.sum())} "
+                    f"of {held.numel()} compared positions agree in every "
+                    f"layer")
+            if share < ROUTE_AGREE_FLOOR or not bool(held.any()):
+                raise AssertionError(f"{arch} routing agreement {share}, "
+                                     f"{int(held.sum())} positions held")
+        diff = (dec - ref).abs().amax(-1)               # (B, STEPS)
+        rel16 = float(diff[held].max() / ref[held].abs().max())
+        rel_all = float(diff.max() / ref.abs().max())
+        agree_tok = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+        limit = LM_BF16_REL
+        if truth is not None:   # bf16's own distance from the f32 truth
+            drift = rel_err(ref, truth)
+            limit = max(LM_BF16_REL, drift)
+            note += (f"; bf16 drift from the f32 full forward: full "
+                     f"{drift:.3e}, decode path {rel_err(dec, truth):.3e}")
+        if not (torch.isfinite(dec).all() and rel16 <= limit):
+            raise AssertionError(f"{arch} bf16 teacher-forced logits: rel "
+                                 f"{rel16} (limit {limit})")
+        log(f"{tag} teacher-forced bf16 B={TF_BATCH} prompt {TF_PROMPT} "
+            f"({how}): relative max error {rel16:.3e} at the "
+            f"{int(held.sum())} held positions (limit {limit:.3e}), "
+            f"{rel_all:.3e} over all {diff.numel()}; argmax agreement "
+            f"{agree_tok:.4f}{note}")
+        del dec, ref, seq, truth
+
+        # -- one traced prefill ---------------------------------------------
+        prefill = lm_steps.make_prefill_step(cfg)
+        prefill(params, prompt_t)
+        wall, busy, by_name = traced(f"{arch} trace",
+                                     lambda: prefill(params, prompt_t),
+                                     launch_counts)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"{tag} one traced prefill B={LM_BATCH} S={LM_PROMPT}: wall "
+            f"{wall:.3f} ms, device busy {busy:.3f} ms, idle "
+            f"{100 * (1 - busy / wall):.1f}%; by activity: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+        del params, prompt_t
+        torch.cuda.empty_cache()
+        log(f"{tag} {time.perf_counter() - t_arch:.2f} s")
+    log(f"[families] phase 4d: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1537,10 +1902,7 @@ def main() -> int:
     # teacher-forced: the decode path's logits on the greedy tokens
     # against a full forward with the plain attention
     last, cache = lm_steps.make_prefill_step(cfg)(params, prompt_t)
-    full = lm.init_cache(cfg, LM_BATCH, max_len, device=dev)
-    for key in ("k", "v"):
-        full[key][:, :, :LM_PROMPT] = cache[key]
-    full["len"] = LM_PROMPT
+    full = lm_steps.decode_cache(cfg, cache, max_len, device=dev)
     del cache
     serve_step = lm_steps.make_serve_step(cfg)
     dec = [last]
@@ -1573,42 +1935,28 @@ def main() -> int:
         f"{100 * lm_idle:.1f}%; by activity: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
 
-    # -- 4c. kernel 3 timing at the prefill shape ------------------------
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    # the layout the main path hands the kernel: (B,S,H,D) seen as (B,H,S,D)
-    qf = randn(LM_BATCH, LM_PROMPT, H, D, dtype=torch.bfloat16).transpose(1, 2)
-    kf = randn(LM_BATCH, LM_PROMPT, Hkv, D,
-               dtype=torch.bfloat16).transpose(1, 2)
-    vf = randn(LM_BATCH, LM_PROMPT, Hkv, D,
-               dtype=torch.bfloat16).transpose(1, 2)
-    k3_ms, how = kernel_ms(lambda: flash_attention_cuda(qf, kf, vf),
-                           "flash_attention_kernel", 20)
-    k3_call = time_ms(lambda: flash_attention_cuda(qf, kf, vf), 20)
-    k3_plain = time_ms(lambda: flash_attention_plain(qf, kf, vf), 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    try:
-        k3_lib = time_ms(lambda: sdpa(qf, kf, vf, is_causal=True,
-                                      enable_gqa=True), 20)
-        lib_how = "enable_gqa"
-    except TypeError:   # a PyTorch without enable_gqa: k/v expanded first
-        ke = kf.repeat_interleave(H // Hkv, dim=1)
-        ve = vf.repeat_interleave(H // Hkv, dim=1)
-        k3_lib = time_ms(lambda: sdpa(qf, ke, ve, is_causal=True), 20)
-        lib_how = "k/v expanded"
-    flops = 2 * 2 * LM_BATCH * H * LM_PROMPT * LM_PROMPT * D * 0.5
-    n_bytes = 2 * (2 * qf.numel() + kf.numel() + vf.numel())  # q,k,v,o
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    k3_bound = max(t_ops, t_bytes)
-    k3_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"[time] flash_attention_cuda B={LM_BATCH} H={H}/{Hkv} "
-        f"S={LM_PROMPT} D={D} bf16 causal: device {k3_ms:.4f} ms ({how}), "
-        f"per call {k3_call:.4f} ms, plain {k3_plain:.3f} ms, "
-        f"scaled_dot_product_attention {k3_lib:.4f} ms ({lib_how}), bound "
-        f"{k3_bound:.5f} ms ({k3_by}: {flops / 1e9:.2f} GFLOP, "
-        f"{n_bytes / 1e6:.1f} MB); {flops / k3_ms / 1e9:.1f} TFLOP/s")
-    del params, qf, kf, vf
+    # -- 4c. kernel 3 timing at the prefill shapes ----------------------
+    del params
     torch.cuda.empty_cache()
+    flash_times = {}
+    for arch in FLASH_TIMED:
+        c = lm_configs.get(arch)
+        shape = (LM_BATCH, c.n_heads, c.n_kv_heads, LM_PROMPT, c.hd)
+        r = flash_times[arch] = flash_timing(dev, gen, shape)
+        log(f"[time] flash_attention_cuda {arch} B={shape[0]} "
+            f"H={shape[1]}/{shape[2]} S={shape[3]} D={shape[4]} bf16 causal: "
+            f"device {r['ms']:.4f} ms ({r['how']}), per call "
+            f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"scaled_dot_product_attention {r['library_ms']:.4f} ms "
+            f"({r['library_how']}), bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}: {r['flops'] / 1e9:.2f} GFLOP, "
+            f"{r['bytes'] / 1e6:.1f} MB); "
+            f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+    k3 = flash_times[LM_ARCH]
+    torch.cuda.empty_cache()
+
+    # -- 4d. the MoE, SSM and hybrid families at full width --------------
+    family_launches = family_phase(dev)
 
     # -- 5./6. the main path: profile -> map -> fuse -> serve ------------
     rng = np.random.default_rng(SEED)
@@ -2275,8 +2623,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
          "launches": lm_counts["flash_attention_cuda"], "max_abs_err": err3,
-         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_lib},
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"],
+         "launches_by_path": {
+             LM_ARCH: lm_counts["flash_attention_cuda"], **family_launches},
+         "ms_by_shape": {a: r["ms"] for a, r in flash_times.items()},
+         "bound_ms_by_shape": {a: r["bound_ms"]
+                               for a, r in flash_times.items()}},
     ]
     log(device_line)
     log(json.dumps({"kernels": kernels}))

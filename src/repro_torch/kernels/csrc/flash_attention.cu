@@ -7,7 +7,8 @@
 // over the keys j visible to query i: j < Sk and, when causal,
 // j <= i + kv_offset (suffix alignment; the ops entry passes Sk - Sq).
 // Inputs are f32 or bf16, the softmax statistics f32, the output has the
-// input type.  Head dims 32, 64 and 128.
+// input type.  Head dims 32, 64, 112 (zamba2-7b: d_model 3584 over 32
+// heads) and 128.
 //
 // Shared by both paths.  One block per (query tile of 64 rows, head,
 // batch); the Pallas grid's sequential key axis becomes a loop inside
@@ -122,8 +123,13 @@ __device__ __forceinline__ void attention(
     int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
     int causal, int kv_offset) {
   constexpr int kLd = D + kPad;
-  constexpr int kVec = D >= 64 ? 4 : 2;        // output columns per read
+  // output columns per read: the widest vector whose 16 lanes tile D
+  // (112 = 16 x 7 takes single floats, in 7 groups)
+  constexpr int kVec = D % (kGrid * 4) == 0 ? 4 : D % (kGrid * 2) == 0 ? 2
+                                                                     : 1;
   constexpr int kGroups = D / (kGrid * kVec);  // column groups per thread
+  static_assert(D % 4 == 0 && kGroups * kGrid * kVec == D,
+                "the thread grid does not tile the head dim");
   extern __shared__ float smem[];
   float* q_s = smem;                  // [kBQ][kLd]
   float* k_s = q_s + kBQ * kLd;       // [kBK][kLd]
@@ -245,10 +251,12 @@ __device__ __forceinline__ void attention(
             const float4 x = *reinterpret_cast<const float4*>(
                 &vrow[g * kGrid * kVec + tx * kVec]);
             vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
-          } else {
+          } else if constexpr (kVec == 2) {
             const float2 x = *reinterpret_cast<const float2*>(
                 &vrow[g * kGrid * kVec + tx * kVec]);
             vv[0] = x.x; vv[1] = x.y;
+          } else {
+            vv[0] = vrow[g * kGrid + tx];
           }
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
@@ -383,6 +391,11 @@ __device__ __forceinline__ void attention(
     int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
     int causal, int kv_offset) {
   constexpr int kLd = D + kPad;
+  // Each 16-wide head-dim chunk is one ldmatrix.x4 of Q or K and each
+  // pair of 8-wide O tiles one ldmatrix.x4.trans of V, so D need only be
+  // a multiple of 16: at D 112 kKC is 7 (odd: no loop pairs chunks) and
+  // rows of 120 elements (240 bytes) keep ldmatrix conflict-free.
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kKC = D / 16;     // 16-wide head-dim chunks of Q K^T
   constexpr int kNS = kBK / 8;    // 8-key column tiles of S
   constexpr int kND = D / 8;      // 8-wide column tiles of O
@@ -636,6 +649,9 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, group, Sq, Sk, qs, ks, vs, os,
                            scale, causal, kv_offset, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, B, H, group, Sq, Sk, qs, ks, vs, os,
+                            scale, causal, kv_offset, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, group, Sq, Sk, qs, ks, vs, os,
                             scale, causal, kv_offset, stream);

@@ -39,7 +39,7 @@ NEG = -1e30
 # the kernel's tiles (csrc/flash_attention.cu kBQ, kBK)
 Q_TILE = 64
 K_TILE = 64
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,14 +1,19 @@
 """Serving launcher: prefill a batch of prompts, then decode tokens
-autoregressively with the KV cache (greedy).
+autoregressively with the KV / SSM cache (greedy).  Every arch of
+``repro_torch.configs`` serves: the attention families, ``moe``
+(deepseek_moe_16b, grok_1_314b), ``ssm`` (mamba2_130m) and ``hybrid``
+(zamba2_7b).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \\
         --full --batch 4 --prompt-len 2048 --gen 32        # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
         --device cpu                                       # smoke config
 
 Weights are random, from ``torch.Generator`` seed ``--seed`` on the
 device; prompts from NumPy seed ``--seed + 1``.  It runs on the card
-unless ``--device cpu`` is given, and raises without one.
+unless ``--device cpu`` is given, and raises without one.  At full
+width deepseek_moe_16b takes 33.8 GB of bf16 weights and zamba2_7b
+13.5 GB; grok_1_314b (633 GB) does not fit one card.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
-"""LM substrate on PyTorch: the attention families of ``repro.models``.
+"""LM substrate on PyTorch: every family of ``repro.models``.
 
 ``dense``, ``vlm`` and ``audio`` share one decoder — GQA attention and a
 (gated) MLP per block, stacked parameters with a leading L axis walked
-by a Python loop.  Prefill attention is ``modules.chunked_attention``,
-which launches the hand-written flash kernel on CUDA tensors; decode
-attention is a plain grouped einsum over the KV cache.  The ``moe``,
-``ssm`` and ``hybrid`` families and the train step are not ported yet
-and raise ``NotImplementedError``.
+by a Python loop; ``moe`` swaps the MLP for routed experts plus a fused
+shared-expert MLP (``moe.moe_ffn``); ``ssm`` stacks Mamba2 SSD blocks
+(``mamba2.mamba_block``) and ``hybrid`` puts one weight-shared attention
+block after every ``attn_every`` of them.  Prefill attention is
+``modules.chunked_attention``, which launches the hand-written flash
+kernel on CUDA tensors; decode attention is a plain grouped einsum over
+the KV cache.  The train step is not ported yet.
 """
 
 from repro_torch.models.config import (
@@ -16,6 +18,7 @@ from repro_torch.models.config import (
     SSMConfig,
 )
 from repro_torch.models.steps import (
+    decode_cache,
     greedy_decode,
     make_prefill_step,
     make_serve_step,
@@ -35,6 +38,7 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
+    "decode_cache",
     "forward",
     "greedy_decode",
     "init_cache",

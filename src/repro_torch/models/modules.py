@@ -77,7 +77,7 @@ def chunked_attention(
     On CUDA tensors this launches the hand-written kernel
     (``flash_attention_cuda``) once, on (B,H,S,D) views of the operands,
     and raises for what the kernel does not take (a dtype other than f32
-    or bf16, a head dim other than 32, 64 or 128); ``q_chunk`` and
+    or bf16, a head dim other than 32, 64, 112 or 128); ``q_chunk`` and
     ``kv_chunk`` are the kernel's business there (its own 64 x 64
     tiles).  On CPU tensors it runs the plain body,
     :func:`chunked_attention_plain`.

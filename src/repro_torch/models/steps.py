@@ -1,6 +1,6 @@
 """Serving step functions — the counterpart of ``repro.models.steps``:
-``make_prefill_step``, ``make_serve_step`` and ``greedy_decode``.  The
-train step waits for the optimizer port."""
+``make_prefill_step``, ``make_serve_step``, ``decode_cache`` and
+``greedy_decode``.  The train step waits for the optimizer port."""
 
 from __future__ import annotations
 
@@ -31,14 +31,34 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """fn(params, cache, token (B,1)) -> (logits (B,V), new_cache).
-    One new token against a pre-filled KV cache, which it updates in
-    place."""
+    One new token against a pre-filled KV/SSM cache, which it updates
+    in place."""
 
     def serve(params, cache, token):
         logits, new_cache, _ = forward(cfg, params, token, cache=cache)
         return logits[:, -1, :], new_cache
 
     return serve
+
+
+def decode_cache(cfg: ModelConfig, prefill_cache: dict, max_len: int, *,
+                 device=None) -> dict:
+    """A ``max_len`` decode cache on ``device`` (``None`` -> ``cuda``)
+    seeded from a prefill's cache, as the JAX package's
+    ``greedy_decode`` seeds it: the kv into its first S positions, the
+    SSM conv rings and states whole."""
+    dev = resolve_device(device)
+    S = prefill_cache["len"]
+    batch = prefill_cache["ssd" if "ssd" in prefill_cache else "k"].shape[1]
+    full = init_cache(cfg, batch, max_len, device=dev)
+    for k in ("k", "v"):
+        if k in full:
+            full[k][:, :, :S] = prefill_cache[k].to(full[k].dtype)
+    for k in ("conv_x", "conv_bc", "ssd"):
+        if k in full:
+            full[k] = prefill_cache[k].to(full[k].dtype)
+    full["len"] = S
+    return full
 
 
 def _sync(dev: torch.device) -> None:
@@ -65,14 +85,9 @@ def greedy_decode(
     prompt = prompt.to(device=dev, dtype=torch.int64)
     prefill = make_prefill_step(cfg)
     serve = make_serve_step(cfg)
-    B, S = prompt.shape
     t0 = time.perf_counter()
     logits, cache = prefill(params, prompt)
-    # move prefill kv into a max_len cache
-    full = init_cache(cfg, B, max_len, device=dev)
-    for k in ("k", "v"):
-        full[k][:, :, :S] = cache[k].to(full[k].dtype)
-    full["len"] = cache["len"]
+    full = decode_cache(cfg, cache, max_len, device=dev)
     del cache
 
     toks = [logits.argmax(-1)[:, None]]

@@ -1,15 +1,15 @@
-"""Decoder for the attention families (dense / VLM / audio) — the
-counterpart of ``repro.models.transformer``.
+"""Unified decoder: dense / MoE / SSM / hybrid / VLM / audio backbones —
+the counterpart of ``repro.models.transformer``.
 
 Parameters are a dict of stacked tensors with a leading L axis, as the
 JAX package's ``_shape_tree`` lays them out; a Python loop over L takes
 the place of ``lax.scan``.  Prefill attention is
 ``modules.chunked_attention`` (the hand-written flash kernel on CUDA
 tensors); decode attention is the plain grouped einsum over the cache,
-outside any kernel in the JAX package too.
-
-Not ported yet, and raising ``NotImplementedError``: the ``moe``,
-``ssm`` and ``hybrid`` families (ROADMAP queue 1 item 12).
+outside any kernel in the JAX package too.  MoE blocks route through
+``moe.moe_ffn``; the SSM family stacks ``mamba2.mamba_block``s, and the
+hybrid (zamba2) family runs ``attn_every``-layer Mamba segments with a
+weight-shared attention block after each.
 """
 
 from __future__ import annotations
@@ -23,18 +23,13 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import modules as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba2 import mamba_block
+from repro_torch.models.moe import moe_ffn
 
-Cache = dict  # {'k': (L,B,Smax,Hkv,hd), 'v': same, 'len': int}
-
-_NOT_PORTED = ("moe", "ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _NOT_PORTED or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            "port covers dense, vlm and audio (ROADMAP queue 1 item 12: "
-            "moe, mamba2/hybrid)")
+# {'k','v': (L,B,Smax,Hkv,hd), 'len': int}; ssm: {'conv_x','conv_bc':
+# (L,B,K,C), 'ssd': (L,B,H,P,N) f32, 'len'}; hybrid: both, k/v stacked
+# over the n_seg shared-block applications
+Cache = dict
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -84,8 +79,31 @@ def _mlp_shapes(cfg: ModelConfig, prefix_l: tuple, d_ff: int) -> dict:
     return {"wu": prefix_l + (d, d_ff), "wd": prefix_l + (d_ff, d)}
 
 
+def _mamba_shapes(cfg: ModelConfig, prefix_l: tuple) -> dict:
+    """Projections kept separate (not fused), as the JAX package keeps
+    them."""
+    s = cfg.ssm
+    d, din = cfg.d_model, cfg.d_inner
+    gn = s.n_groups * s.d_state
+    H = cfg.ssm_heads
+    return {
+        "in_z": prefix_l + (d, din),
+        "in_x": prefix_l + (d, din),
+        "in_bc": prefix_l + (d, 2 * gn),
+        "in_dt": prefix_l + (d, H),
+        "conv_x_w": prefix_l + (s.conv_kernel, din),
+        "conv_x_b": prefix_l + (din,),
+        "conv_bc_w": prefix_l + (s.conv_kernel, 2 * gn),
+        "conv_bc_b": prefix_l + (2 * gn,),
+        "A_log": prefix_l + (H,),
+        "D": prefix_l + (H,),
+        "dt_bias": prefix_l + (H,),
+        "gnorm": prefix_l + (din,),
+        "out_proj": prefix_l + (din, d),
+    }
+
+
 def _shape_tree(cfg: ModelConfig) -> dict:
-    _check_family(cfg)
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     lp = (L,)
     tree: dict = {"embed": (V, d)}
@@ -93,11 +111,40 @@ def _shape_tree(cfg: ModelConfig) -> dict:
         tree["lm_head"] = (d, V)
     if cfg.norm == "rms":
         tree["final_norm"] = (d,)
+
+    if cfg.family in ("ssm", "hybrid"):
+        blocks = {"mamba": _mamba_shapes(cfg, lp)}
+        if cfg.norm == "rms":
+            blocks["ln1"] = lp + (d,)
+        tree["blocks"] = blocks
+        if cfg.family == "hybrid":
+            shared = {
+                "attn": _attn_block_shapes(cfg, ()),
+                "mlp": _mlp_shapes(cfg, (), cfg.d_ff),
+            }
+            if cfg.norm == "rms":
+                shared["ln1"] = (d,)
+                shared["ln2"] = (d,)
+            tree["shared"] = shared
+        return tree
+
     blocks: dict = {"attn": _attn_block_shapes(cfg, lp)}
     if cfg.norm == "rms":
         blocks["ln1"] = lp + (d,)
         blocks["ln2"] = lp + (d,)
-    blocks["mlp"] = _mlp_shapes(cfg, lp, cfg.d_ff)
+    if cfg.moe:
+        fe = cfg.moe.d_expert or cfg.d_ff
+        E = cfg.moe.n_experts
+        blocks["moe"] = {
+            "router": lp + (d, E),
+            "wg": lp + (E, d, fe),
+            "wu": lp + (E, d, fe),
+            "wd": lp + (E, fe, d),
+        }
+        if cfg.moe.n_shared:   # the shared experts fused into one MLP
+            blocks["mlp"] = _mlp_shapes(cfg, lp, cfg.moe.n_shared * fe)
+    else:
+        blocks["mlp"] = _mlp_shapes(cfg, lp, cfg.d_ff)
     tree["blocks"] = blocks
     return tree
 
@@ -114,24 +161,47 @@ def _map_tree(fn: Callable, tree: dict, path: tuple = ()) -> dict:
 def init_params(
     cfg: ModelConfig, generator: torch.Generator, device=None
 ) -> dict:
-    """Random initialization (smoke tests, examples, ``chip_smoke.py``):
-    scaled normal for matmuls, ones for norm scales, zeros for QKV
-    biases, as the JAX package initializes.  Draws on ``generator``'s
-    device (pass a CUDA generator to draw on the card) and returns
-    tensors of ``cfg.dtype`` on ``device`` (``None`` -> ``cuda``)."""
+    """Random initialization (smoke tests, examples, ``chip_smoke.py``)
+    by the JAX package's recipe: scaled normal for matmuls, ones for
+    norm scales (and the SSD's ``D``), zeros for QKV biases, and the
+    Mamba2 reference's ``A_log`` = log U[1, 16) and ``dt_bias`` =
+    softplus^-1 U[1e-3, 1e-1].  Draws on ``generator``'s device (pass a
+    CUDA generator to draw on the card) and returns tensors of
+    ``cfg.dtype`` on ``device`` (``None`` -> ``cuda``).  Leaves of three
+    or more axes are drawn one slice of the leading axis at a time, so
+    the f32 draw of a stacked leaf (deepseek-moe-16b's ``blocks/moe/wg``
+    is 5.2 G elements) never exists whole beside the weights."""
     dev = resolve_device(device)
     dt = _dtype(cfg)
 
+    def draw(sh, fn):
+        out = torch.empty(sh, dtype=dt, device=dev)
+        for row in (out if len(sh) >= 3 else out[None]):
+            row.copy_(fn(row.shape))
+        return out
+
+    def uniform(sh, lo, hi):
+        return torch.rand(sh, generator=generator, device=generator.device,
+                          dtype=torch.float32) * (hi - lo) + lo
+
     def init_one(path, sh):
         name = path[-1]
-        if name in ("ln1", "ln2", "final_norm"):
+        if name in ("ln1", "ln2", "final_norm", "gnorm", "D"):
             return torch.ones(sh, dtype=dt, device=dev)
+        # the JAX package lists a "conv_b" here, which names no leaf: its
+        # conv_x_b / conv_bc_b get the scaled-normal draw below, and so
+        # do the port's
         if name in ("bq", "bk", "bv"):
             return torch.zeros(sh, dtype=dt, device=dev)
+        if name == "A_log":    # A in [1, 16), the mamba2 reference's
+            return torch.log(uniform(sh, 1.0, 16.0)).to(dev, dt)
+        if name == "dt_bias":  # dt ~ U[1e-3, 1e-1] through softplus^-1
+            return torch.log(torch.expm1(uniform(sh, 1e-3, 1e-1))).to(dev,
+                                                                        dt)
         fan_in = sh[-2] if len(sh) >= 2 else sh[-1]
-        w = torch.randn(sh, generator=generator, device=generator.device,
-                        dtype=torch.float32)
-        return (w / math.sqrt(fan_in)).to(device=dev, dtype=dt)
+        return draw(sh, lambda shape: torch.randn(
+            shape, generator=generator, device=generator.device,
+            dtype=torch.float32).div_(math.sqrt(fan_in)))
 
     return _map_tree(init_one, _shape_tree(cfg))
 
@@ -280,7 +350,7 @@ def attn_block_apply(
     attention: Optional[Callable] = None,
 ):
     """One attention block. Returns (x, kv_for_cache, aux_loss); the aux
-    loss is MoE's, so 0.0 for the families ported."""
+    loss is MoE's load-balance term (0.0 for a dense MLP)."""
     x = _pin_residual(x)
     h = M.apply_norm(cfg.norm, x, bp.get("ln1"))
     if cache is None:
@@ -291,7 +361,25 @@ def attn_block_apply(
         )
     x = x + a
     h2 = M.apply_norm(cfg.norm, x, bp.get("ln2"))
-    return x + _mlp_apply(cfg, bp["mlp"], h2), kv, 0.0
+    aux = 0.0
+    if cfg.moe:
+        # groups = batch rows, as the JAX package dispatches
+        m, aux = moe_ffn(h2, bp["moe"], cfg)
+        if cfg.moe.n_shared:
+            m = m + _mlp_apply(cfg, bp["mlp"], h2)
+    else:
+        m = _mlp_apply(cfg, bp["mlp"], h2)
+    return x + m, kv, aux
+
+
+def mamba_block_apply(
+    cfg: ModelConfig, bp: dict, x: torch.Tensor,
+    *, cache: Optional[dict] = None,
+):
+    x = _pin_residual(x)
+    h = M.apply_norm(cfg.norm, x, bp.get("ln1"))
+    out, new_cache = mamba_block(cfg, h, bp["mamba"], cache=cache)
+    return x + out, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -325,23 +413,33 @@ def forward(
     last_only: bool = False,
     attention: Optional[Callable] = None,
 ):
-    """Returns (logits, new_cache_or_None, moe_aux_loss).
+    """Returns (logits, new_cache_or_None, moe_aux_loss), the aux loss a
+    0-d f32 tensor summed over the MoE blocks (0 without any).
 
     cache=None             -> train / prefill over the full sequence
     cache + tokens (B,1)   -> single-token decode (updates the cache's
-                              k/v in place)
+                              tensors in place and returns them)
     last_only=True         -> unembed only the final position (prefill:
                               avoids materializing (B,S,V) logits)
     attention              -> the prefill attention (see attn_full)
     """
-    _check_family(cfg)
     x = _pin_residual(_embed(cfg, params, tokens, frontend_embeds))
     B, S, _ = x.shape
     decode = cache is not None and S == 1
     positions = None if decode else (
         torch.arange(S, device=x.device)[None, :].expand(B, S))
-    x, new_cache = _forward_attn(
-        cfg, params, x, positions, cache, decode, return_cache, attention)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        x, new_cache = _forward_ssm(cfg, params, x, cache, decode,
+                                    return_cache)
+    elif cfg.family == "hybrid":
+        x, new_cache = _forward_hybrid(
+            cfg, params, x, positions, cache, decode, return_cache,
+            attention)
+    else:
+        x, new_cache, aux = _forward_attn(
+            cfg, params, x, positions, cache, decode, return_cache,
+            attention, aux)
     if last_only:
         x = x[:, -1:, :]
     logits = _unembed(cfg, params, x)
@@ -351,31 +449,109 @@ def forward(
         )
     if not (return_cache or decode):
         new_cache = None
-    return logits, new_cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+    return logits, new_cache, aux
 
 
 def _forward_attn(cfg, params, x, positions, cache, decode, return_cache,
-                  attention=None):
+                  attention, aux):
     blocks = params["blocks"]
     if decode:
         for i in range(cfg.n_layers):
-            x, _, _ = attn_block_apply(
+            x, _, a = attn_block_apply(
                 cfg, _layer(blocks, i), x, None,
                 cache={"k": cache["k"][i], "v": cache["v"][i]},
                 cache_len=cache["len"],
             )
-        return x, {"k": cache["k"], "v": cache["v"]}
+            aux = aux + a
+        return x, {"k": cache["k"], "v": cache["v"]}, aux
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v), _ = attn_block_apply(
+        x, (k, v), a = attn_block_apply(
             cfg, _layer(blocks, i), x, positions, attention=attention)
+        aux = aux + a
         if return_cache:
             ks.append(k)
             vs.append(v)
     if not return_cache:
+        return x, None, aux
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
+
+
+_SSM_CACHE_KEYS = ("conv_x", "conv_bc", "ssd")
+
+
+def _mamba_layers(cfg, blocks, x, layers, cache, decode, caches):
+    """Mamba blocks ``layers`` of the stack.  Decode reads layer i's
+    state from ``cache`` and writes the new one back in place; prefill
+    appends each layer's handoff state to ``caches`` (a list) when it is
+    not None."""
+    for i in layers:
+        if decode:
+            x, nc = mamba_block_apply(
+                cfg, _layer(blocks, i), x,
+                cache={k: cache[k][i] for k in _SSM_CACHE_KEYS})
+            for k in _SSM_CACHE_KEYS:
+                cache[k][i] = nc[k]
+        else:
+            x, nc = mamba_block_apply(cfg, _layer(blocks, i), x)
+            if caches is not None:
+                caches.append(nc)
+    return x
+
+
+def _stack_states(caches: list) -> dict:
+    return {k: torch.stack([c[k] for c in caches])
+            for k in _SSM_CACHE_KEYS}
+
+
+def _forward_ssm(cfg, params, x, cache, decode, return_cache):
+    caches = [] if return_cache and not decode else None
+    x = _mamba_layers(cfg, params["blocks"], x, range(cfg.n_layers), cache,
+                      decode, caches)
+    if decode:
+        return x, {k: cache[k] for k in _SSM_CACHE_KEYS}
+    return x, None if caches is None else _stack_states(caches)
+
+
+def _hybrid_split(cfg: ModelConfig):
+    k = cfg.hybrid.attn_every
+    n_seg = cfg.n_layers // k
+    tail = cfg.n_layers - n_seg * k
+    return k, n_seg, tail
+
+
+def _forward_hybrid(cfg, params, x, positions, cache, decode, return_cache,
+                    attention=None):
+    """Mamba backbone; the weight-shared attention block runs after each
+    k-layer segment (its KV cache is stacked over the n_seg segments),
+    and the tail layers have no block after them."""
+    k, n_seg, _ = _hybrid_split(cfg)
+    blocks, shared = params["blocks"], params["shared"]
+    caches = [] if return_cache and not decode else None
+    ks, vs = [], []
+    for s in range(n_seg):
+        x = _mamba_layers(cfg, blocks, x, range(s * k, (s + 1) * k), cache,
+                          decode, caches)
+        if decode:
+            x, _, _ = attn_block_apply(
+                cfg, shared, x, None,
+                cache={"k": cache["k"][s], "v": cache["v"][s]},
+                cache_len=cache["len"])
+        else:
+            x, (kk, vv), _ = attn_block_apply(cfg, shared, x, positions,
+                                              attention=attention)
+            if caches is not None:
+                ks.append(kk)
+                vs.append(vv)
+    x = _mamba_layers(cfg, blocks, x, range(n_seg * k, cfg.n_layers), cache,
+                      decode, caches)
+    if decode:
+        return x, {key: cache[key] for key in _SSM_CACHE_KEYS + ("k", "v")}
+    if caches is None:
         return x, None
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    new_cache = _stack_states(caches)
+    new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -384,16 +560,34 @@ def _forward_attn(cfg, params, x, positions, cache, decode, return_cache,
 
 
 def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    _check_family(cfg)
-    kv = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd),
-          _dtype(cfg))
-    return {"k": kv, "v": kv}
+    dt = _dtype(cfg)
+    out: dict = {}
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        out["conv_x"] = (
+            (cfg.n_layers, batch, s.conv_kernel, cfg.d_inner), dt)
+        out["conv_bc"] = (
+            (cfg.n_layers, batch, s.conv_kernel,
+             2 * s.n_groups * s.d_state), dt)
+        out["ssd"] = (
+            (cfg.n_layers, batch, cfg.ssm_heads, s.head_dim, s.d_state),
+            torch.float32)
+    if cfg.family == "hybrid":
+        _, n_seg, _ = _hybrid_split(cfg)
+        out["k"] = ((n_seg, batch, max_len, cfg.n_kv_heads, cfg.hd), dt)
+        out["v"] = out["k"]
+    elif cfg.family != "ssm":
+        out["k"] = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd),
+                    dt)
+        out["v"] = out["k"]
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Cache:
-    """Zeroed KV cache on ``device`` (``None`` -> ``cuda``); ``len`` is a
-    Python int."""
+    """Zeroed decode cache on ``device`` (``None`` -> ``cuda``): KV for
+    the attention families, conv rings and f32 SSD states for ssm, both
+    for hybrid; ``len`` is a Python int."""
     dev = resolve_device(device)
     c: dict = {k: torch.zeros(s, dtype=d, device=dev)
                for k, (s, d) in _cache_shapes(cfg, batch, max_len).items()}

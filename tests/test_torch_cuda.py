@@ -302,6 +302,10 @@ FLASH_CASES = {
     "ragged": (2, 4, 2, 200, 200, 64, torch.float32, True),
     "ragged-full": (1, 4, 4, 77, 130, 64, torch.bfloat16, False),
     "sq1": (2, 14, 2, 1, 2048, 64, torch.float32, True),
+    # head dim 112 (zamba2-7b) on the f32 path: 7 column groups of 1
+    "f32-d112-gqa-causal": (2, 14, 2, 200, 200, 112, torch.float32, True),
+    "f32-d112-ragged-full": (1, 4, 4, 77, 130, 112, torch.float32, False),
+    "f32-d112-g7-sq1": (2, 14, 2, 1, 300, 112, torch.float32, True),
 }
 
 
@@ -310,9 +314,12 @@ FLASH_CASES = {
 TC_CASES = {
     **{f"d{d}-g{g}-{'causal' if c else 'full'}":
        (2, 2 * g, 2, 200, 200, d, c, None)
-       for d in (32, 64, 128) for g in (1, 2, 7) for c in (True, False)},
+       for d in (32, 64, 112, 128) for g in (1, 2, 7)
+       for c in (True, False)},
     "sq1-sk2048": (4, 14, 2, 1, 2048, 64, True, None),
     "sq1-sk2048-d128": (1, 8, 1, 1, 2048, 128, True, None),
+    "sq1-sk2048-d112": (1, 32, 32, 1, 2048, 112, True, None),
+    "zamba2-like-d112": (1, 32, 32, 300, 300, 112, True, None),
     "ragged-sq-sk-full": (1, 4, 4, 77, 130, 64, False, None),
 }
 
@@ -337,7 +344,7 @@ def test_flash_attention_bf16_tensor_cores_match_plain(dev, name):
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 def test_flash_attention_bf16_strided_views_with_kv_offset(dev, d):
     """The model's (B,S,H,D) projections seen as (B,H,S,D), a positive
     offset below Sk - Sq (later queries see fewer keys than aligned
@@ -600,3 +607,108 @@ def test_train_loop_resumes_on_the_card_equal_to_the_uninterrupted_run(
         assert a.device == dev and torch.equal(a, b)
     assert [r["loss"] for r in out["metrics"]] == [
         r["loss"] for r in ref_out["metrics"]][2:]
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid layers on the card (f32, smoke sizes) against the
+# same call on CPU tensors: sums in other orders, so a relative max error
+# of 1e-5; the MoE drop set must be equal
+# ---------------------------------------------------------------------------
+
+
+def _rel(a, b) -> float:
+    return float((a.float().cpu() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def _smoke_params(arch, **changes):
+    from repro_torch import configs
+    from repro_torch.models import transformer as T_T
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), **changes)
+    return cfg, T_T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_moe_ffn_on_the_card_equals_the_cpu_call(dev):
+    """deepseek's smoke layer under capacity_factor 0.5, which drops
+    choices: the same drop set on both devices."""
+    from repro_torch.models import moe as T_MOE
+    from repro_torch.models.config import MoEConfig
+
+    cfg, params = _smoke_params("deepseek_moe_16b", moe=MoEConfig(
+        n_experts=8, top_k=2, n_shared=2, d_expert=32, capacity_factor=0.5))
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 24, cfg.d_model)).astype(np.float32))
+    out, aux = T_MOE.moe_ffn(x, p, cfg)
+    out_d, aux_d = T_MOE.moe_ffn(x.to(dev), _to(p, dev), cfg)
+    assert out_d.is_cuda and _rel(out_d, out) <= 1e-5
+    assert abs(float(aux_d) - float(aux)) <= 1e-5 * float(aux)
+    ids = T_MOE.route((x @ p["router"]).reshape(-1, 8), 2)[1]
+    ids_d = T_MOE.route((x.to(dev) @ p["router"].to(dev)).reshape(-1, 8),
+                        2)[1]
+    C = T_MOE.capacity(cfg, 24)
+    keep = T_MOE._dispatch_group(x, ids.reshape(3, 24, 2), C, 8)[1]
+    keep_d = T_MOE._dispatch_group(x.to(dev), ids_d.reshape(3, 24, 2), C,
+                                   8)[1]
+    assert int((~keep).sum()) > 0 and torch.equal(keep_d.cpu(), keep)
+
+
+@pytest.mark.parametrize("S", [3, 13])
+def test_mamba_block_on_the_card_equals_the_cpu_call(dev, S):
+    """Prefill (out and the three handoff entries) and one decode step
+    from the handed-off state."""
+    from repro_torch.models import mamba2 as T_M2
+
+    cfg, params = _smoke_params("mamba2_130m")
+    p = {k: v[0] for k, v in params["blocks"]["mamba"].items()}
+    x = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (2, S + 1, cfg.d_model)).astype(np.float32))
+    out, cache = T_M2.mamba_block(cfg, x[:, :S], p)
+    out_d, cache_d = T_M2.mamba_block(cfg, x[:, :S].to(dev), _to(p, dev))
+    assert out_d.is_cuda and _rel(out_d, out) <= 1e-5
+    for key in ("conv_x", "conv_bc", "ssd"):
+        assert _rel(cache_d[key], cache[key]) <= 1e-5, key
+    dec, new = T_M2.mamba_block(cfg, x[:, S:], p, cache=cache)
+    dec_d, new_d = T_M2.mamba_block(cfg, x[:, S:].to(dev), _to(p, dev),
+                                    cache=cache_d)
+    assert _rel(dec_d, dec) <= 1e-5
+    assert _rel(new_d["ssd"], new["ssd"]) <= 1e-5
+
+
+def test_grok_smoke_forward_on_the_card_equals_the_cpu_forward(dev):
+    """grok-1's smoke config (GQA 4/2, 8 experts top-2, no shared
+    expert) with head dim 32, which the flash kernel takes (the smoke
+    config's own 16 it refuses): prefill through the kernel once per
+    layer, then a decode step.  f32 attention in the kernel differs from
+    the plain version in its summation order (1e-4, kernel 3's f32
+    tolerance)."""
+    from repro_torch.models import steps as T_S
+    from repro_torch.models import transformer as T_T
+
+    cfg, params = _smoke_params("grok_1_314b", head_dim=32)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 70)))
+    logits, cache, aux = T_T.forward(cfg, params, toks, return_cache=True)
+    pd = _to(params, dev)
+    before = flash_attention_cuda.launches
+    logits_d, cache_d, aux_d = T_T.forward(cfg, pd, toks.to(dev),
+                                           return_cache=True)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    assert _rel(logits_d, logits) <= 1e-4
+    assert abs(float(aux_d) - float(aux)) <= 1e-5 * float(aux)
+    for key in ("k", "v"):
+        assert _rel(cache_d[key], cache[key]) <= 1e-5
+    full = T_S.decode_cache(cfg, cache, 80, device="cpu")
+    full_d = T_S.decode_cache(cfg, cache_d, 80, device=dev)
+    step = T_S.make_serve_step(cfg)
+    nxt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 1)))
+    dec, _ = step(params, full, nxt)
+    dec_d, _ = step(pd, full_d, nxt.to(dev))
+    assert _rel(dec_d, dec) <= 1e-4

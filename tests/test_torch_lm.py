@@ -29,7 +29,6 @@ from repro_torch.models.config import ModelConfig  # noqa: E402
 
 ATTN_ARCHS = ("qwen2_0_5b", "olmo_1b", "minitron_8b", "qwen2_5_14b",
               "llava_next_mistral_7b", "musicgen_medium")
-NOT_PORTED = ("deepseek_moe_16b", "grok_1_314b", "mamba2_130m", "zamba2_7b")
 REL = 1e-5
 
 
@@ -188,18 +187,26 @@ def test_registry_tables_equal_jax():
         T_C.get("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", T_C.ARCH_NAMES)
+def test_every_config_serves_on_cpu(arch):
+    """Every family builds params and a cache, forwards and greedy-decodes
+    at its smoke size: none is left unported."""
     cfg = T_C.get_smoke(arch)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T_T.init_params(cfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T_T.init_cache(cfg, 1, 4, device="cpu")
-    qcfg = T_C.get_smoke("qwen2_0_5b")
-    params = T_T.init_params(qcfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T_T.forward(cfg, params, torch.zeros((1, 4), dtype=torch.int64))
+    params = T_T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 6, 7))
+    fe = None
+    if cfg.n_frontend_embeds:
+        fe = torch.zeros((2, cfg.n_frontend_embeds, cfg.d_model))
+    logits, cache, aux = T_T.forward(cfg, params, toks, frontend_embeds=fe,
+                                     return_cache=True)
+    assert logits.shape == (2, 6 + cfg.n_frontend_embeds, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()) and aux.dim() == 0
+    assert (float(aux) > 0) == (cfg.moe is not None)
+    assert set(T_T.init_cache(cfg, 2, 8, device="cpu")) == set(cache)
+    toks_out = T_S.greedy_decode(cfg, params, toks.numpy(), n_steps=3,
+                                 max_len=9, device="cpu")
+    assert toks_out.shape == (2, 3)
+    assert bool(((toks_out >= 0) & (toks_out < cfg.vocab)).all())
 
 
 def test_launch_serve_runs_the_smoke_config_on_cpu(capsys):
