@@ -179,6 +179,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    tensors), their p50 beside phase 5's; both BNN kernels must launch
    during the phase.
 
+14. LM training (``lm_train_phase``): (a) every arch's smoke config
+   widened to head dim 32 (the kernel refuses the smoke configs' 16),
+   f32, TF32 off: one AdamW ``make_train_step`` on the card against the
+   same step on CPU tensors from the same params and batch, with
+   ``accum_steps`` 1 and again with 2 and ``grad_compression="bf16"``
+   (loss, ce, aux and grad_norm within a relative 1e-5, every gradient
+   leaf within 1e-4 of its largest magnitude, the updated params by
+   phase 13's rule; kernel 3 must launch once per attention application
+   of each micro-step); (b) qwen2-0.5B at full width: an f32 loss and
+   every gradient leaf at B 2 x S 256 through the kernel's forward and
+   the chunk-recompute backward against plain autograd through the
+   plain attention (relative 1e-4), then bf16 training through
+   ``repro_torch.launch.train.main`` at B 4 x S 2,048 for 20 steps on
+   the token stream (every loss finite, the last five below the first
+   five, 24 x 20 flash launches), its step p50, peak allocated memory,
+   one traced step (busy, idle, largest activities) and the
+   chunk-recompute backward's time per layer; (c) mamba2-130m at full
+   width (chunk 128): an f32 step whose grad_norm is finite, the same
+   step through the reference's exp-then-mask SSD, whose grad_norm must
+   not be, and bf16 ``TrainLoop`` training at B 4 x S 2,048 with an
+   injected failure and a resume held ``torch.equal`` to the
+   uninterrupted run, its peak allocated memory and one traced step.
+
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
 launches of a kernel than its wrapper counted is taken again, and three
@@ -192,8 +215,9 @@ phase 6's untraced serving (both BNN kernels must have launched while
 serving), phase 9's adaptive serving (``segment_cuda``), phase 10's
 explore job (``xnor_gemm_cuda``), phase 11's autotune sweep and
 serving (``xnor_gemm_cuda``), phase 12 (``xnor_gemm_cuda`` and
-``segment_cuda``) and phase 13 (``xnor_gemm_cuda`` and
-``segment_cuda``).  The last
+``segment_cuda``), phase 13 (``xnor_gemm_cuda`` and
+``segment_cuda``) and phase 14's qwen2 training
+(``flash_attention_cuda``, once per layer of each step).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -334,6 +358,18 @@ TRAIN_EXAMPLES, TRAIN_BATCH, TRAIN_LR = 4096, 64, 2e-3
 TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 120, 40, 60
 STEP_RTOL, STEP_W_ATOL, STEP_VAR_FACTOR = 1e-5, 0.05, 10
 STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-4, 1e-6
+
+# LM training (phase 14): every arch's smoke config widened to head dim
+# 32 (the kernel's smallest) at B x S, AdamW lr; qwen2-0.5B at full
+# width trained through launch.train at B x S for these steps; mamba2-130m
+# at full width through TrainLoop for these steps, checkpoint interval
+# and injected failure (the card step is held to the CPU step by phase
+# 13's tolerances)
+LM_TRAIN_HEAD_DIM = 32
+LM_TRAIN_SMOKE_B, LM_TRAIN_SMOKE_S = 4, 64
+LM_TRAIN_LR = 1e-3
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 2048, 20
+SSD_TRAIN_STEPS, SSD_SAVE_EVERY, SSD_FAIL_AT = 3, 2, 3
 
 # adaptive serving (phase 9): requests per burst, calibration stops after
 # this many steps without a new journal entry (at most CALIBRATE_MAX
@@ -1627,6 +1663,359 @@ def family_phase(dev) -> dict:
     return launches
 
 
+def lm_train_phase(dev, flash_ms: float) -> dict:
+    """Phase 14: LM training on the card.  (a) every arch's smoke config
+    (head dim 32) one AdamW step on the card against the same step on
+    CPU tensors, f32, twice (``accum_steps`` 1, then 2 with bf16
+    gradient compression); (b) qwen2-0.5B at full width: an f32 loss and
+    gradient through the kernel-forward ``FlashAttentionFn`` against
+    plain autograd through the plain attention, then bf16 training
+    through ``repro_torch.launch.train.main`` (its flash launches counted
+    around the run), a traced step, peak memory and the recompute
+    backward's time; (c) mamba2-130m at full width: an f32 step whose
+    grad_norm is finite and the same step through the reference's
+    exp-then-mask SSD, which must not be; bf16 ``TrainLoop`` with an
+    injected failure and a resume ``torch.equal`` to the uninterrupted
+    run.  `flash_ms` is kernel 3's device ms per launch at qwen2's
+    prefill shape (phase 4c).  Returns {"train_launches", "steps",
+    "seconds"}."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as lm_configs
+    from repro_torch.data import make_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import mamba2 as lm_mamba2
+    from repro_torch.models import modules as lm_modules
+    from repro_torch.models import steps as lm_steps
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.runtime import InjectedFailure, LoopConfig, TrainLoop
+    from repro_torch.tree import flatten, leaves, paths, unflatten
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
+
+    def rel(a, b) -> float:
+        a, b = float(a), float(b)
+        return abs(a - b) / abs(b) if b else abs(a)
+
+    def leaf_rel(a, b) -> float:
+        scale = float(b.abs().max())
+        diff = float((a.cpu().double() - b.cpu().double()).abs().max())
+        return diff / scale if scale else diff
+
+    def grads(cfg, params, batch, attention=None):
+        """(loss, [gradient leaves]) of ``loss_fn`` at `params`."""
+        flat, tdef = flatten(params)
+        live = [t.detach().requires_grad_() for t in flat]
+        loss, _ = lm_steps.loss_fn(cfg, unflatten(tdef, live),
+                                   batch["tokens"], batch["labels"],
+                                   batch.get("frontend_embeds"),
+                                   attention=attention)
+        got = torch.autograd.grad(loss, live, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(t) if g is None else g
+                               for t, g in zip(live, got)]
+
+    def n_attention(cfg) -> int:
+        if cfg.family == "ssm":
+            return 0
+        if cfg.family == "hybrid":
+            return cfg.n_layers // cfg.hybrid.attn_every
+        return cfg.n_layers
+
+    # -- (a) every arch's smoke config: card step against CPU step --------
+    worst = {"metric": 0.0, "grad": 0.0, "firm": 0.0, "soft": 0.0}
+    for arch in lm_configs.ARCH_NAMES:
+        cfg = lm_configs.get_smoke(arch)
+        if cfg.family != "ssm":   # the kernel takes head dims from 32 up
+            cfg = dataclasses.replace(cfg, head_dim=LM_TRAIN_HEAD_DIM)
+        p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                               "cpu")
+        rng = np.random.default_rng(SEED)
+        b_np = {"tokens": rng.integers(0, cfg.vocab, (
+            LM_TRAIN_SMOKE_B, LM_TRAIN_SMOKE_S), dtype=np.int32)}
+        b_np["labels"] = b_np["tokens"]
+        if cfg.n_frontend_embeds:
+            b_np["frontend_embeds"] = rng.standard_normal(
+                (LM_TRAIN_SMOKE_B, cfg.n_frontend_embeds, cfg.d_model)
+            ).astype(np.float32)
+        b_cpu = {k: torch.from_numpy(v) for k, v in b_np.items()}
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        p_dev = tree_to(p_cpu, dev)
+        line = []
+        for accum, comp in ((1, "none"), (2, "bf16")):
+            opt = adamw(LM_TRAIN_LR)
+            step = lm_steps.make_train_step(cfg, opt, accum_steps=accum,
+                                            grad_compression=comp)
+            new_c, _, m_c = step(p_cpu, opt.init(p_cpu), b_cpu)
+            before = launch_counts()["flash_attention_cuda"]
+            new_d, _, m_d = step(p_dev, opt.init(p_dev), b_dev)
+            torch.cuda.synchronize()
+            launched = launch_counts()["flash_attention_cuda"] - before
+            if launched != n_attention(cfg) * accum:
+                raise AssertionError(
+                    f"{arch} accum {accum}: {launched} flash launches, "
+                    f"{n_attention(cfg) * accum} attention applications")
+            errs = {k: rel(m_d[k], m_c[k]) for k in m_c}
+            worst["metric"] = max(worst["metric"], *errs.values())
+            if max(errs.values()) > STEP_RTOL:
+                raise AssertionError(f"{arch} accum {accum}: metrics card "
+                                     f"vs CPU {errs}")
+            # the gradient the step took, on the CPU: the micro-batch mean
+            # (and its bf16 round trip) where it accumulates
+            mb = LM_TRAIN_SMOKE_B // accum
+            g_cpu = None
+            for i in range(accum):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in b_cpu.items()}
+                _, g = grads(cfg, p_cpu, part)
+                g_cpu = g if g_cpu is None else [
+                    a + c for a, c in zip(g_cpu, g)]
+            g_cpu = [g / accum for g in g_cpu]
+            if comp == "bf16":
+                g_cpu = [g.to(torch.bfloat16).float() for g in g_cpu]
+            if accum == 1:
+                _, g_dev = grads(cfg, p_dev, b_dev)
+                for name, a, c in zip(paths(p_cpu), g_dev, g_cpu):
+                    e = leaf_rel(a, c)
+                    worst["grad"] = max(worst["grad"], e)
+                    if e > STEP_GRAD_RTOL:
+                        raise AssertionError(f"{arch} gradient {name}: "
+                                             f"card vs CPU rel {e}")
+            clip = min(1.0, 1.0 / (float(m_c["grad_norm"]) + 1e-9))
+            for name, a, c, g in zip(paths(p_cpu), leaves(new_d),
+                                     leaves(new_c), g_cpu):
+                d = (a.cpu().double() - c.double()).abs()
+                firm = (clip * g).abs() >= STEP_GRAD_FLOOR
+                f_err = float(d[firm].max()) if bool(firm.any()) else 0.0
+                s_err = float(d[~firm].max()) if bool((~firm).any()) else 0.0
+                worst["firm"] = max(worst["firm"], f_err / LM_TRAIN_LR)
+                worst["soft"] = max(worst["soft"], s_err / LM_TRAIN_LR)
+                if (f_err > STEP_W_ATOL * LM_TRAIN_LR
+                        or s_err > 2 * LM_TRAIN_LR):
+                    raise AssertionError(f"{arch} accum {accum}: {name} "
+                                         f"moved {f_err} / {s_err} apart")
+            line.append(f"accum {accum} {comp}: loss {float(m_d['loss']):.5f}"
+                        f" rel {errs['loss']:.2e}, grad_norm rel "
+                        f"{errs['grad_norm']:.2e}, {launched} launches")
+        log(f"[lm train] {arch} smoke (head dim {cfg.hd}) B "
+            f"{LM_TRAIN_SMOKE_B} S {LM_TRAIN_SMOKE_S}: " + "; ".join(line))
+    log(f"[lm train] 10 archs, card step vs CPU step: worst metric rel "
+        f"{worst['metric']:.3e} (limit {STEP_RTOL}), worst gradient leaf "
+        f"rel {worst['grad']:.3e} (limit {STEP_GRAD_RTOL}), params after "
+        f"AdamW {worst['firm']:.3e} x lr where the clipped |g| >= "
+        f"{STEP_GRAD_FLOOR:g} (limit {STEP_W_ATOL}), {worst['soft']:.3e} x "
+        f"lr below it (limit 2)")
+
+    # -- (b) qwen2-0.5B at full width ---------------------------------------
+    cfg = lm_configs.get(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_CHECK_BATCH, LM_CHECK_LEN))).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+
+    def plain_autograd(*args, **kwargs):
+        return lm_modules.chunked_attention_plain(
+            *args, **{**kwargs, "remat_chunks": False})
+
+    before = launch_counts()["flash_attention_cuda"]
+    loss_k, g_k = grads(cfg32, p32, batch)
+    if launch_counts()["flash_attention_cuda"] - before != cfg.n_layers:
+        raise AssertionError("the f32 check did not go through the kernel")
+    loss_p, g_p = grads(cfg32, p32, batch, attention=plain_autograd)
+    g_errs = [leaf_rel(a, c) for a, c in zip(g_k, g_p)]
+    worst_i = int(np.argmax(g_errs))
+    log(f"[lm train] {cfg.name} f32 B={LM_CHECK_BATCH} S={LM_CHECK_LEN}: "
+        f"loss through the kernel + chunk-recompute backward "
+        f"{float(loss_k):.6f}, plain autograd {float(loss_p):.6f} (rel "
+        f"{rel(loss_k, loss_p):.3e}); worst of {len(g_errs)} gradient "
+        f"leaves {g_errs[worst_i]:.3e} ({paths(p32)[worst_i]}); limit "
+        f"{LM_F32_REL}")
+    if rel(loss_k, loss_p) > LM_F32_REL or max(g_errs) > LM_F32_REL:
+        raise AssertionError("qwen2 f32 gradient: kernel path vs plain")
+    del p32, g_k, g_p
+    torch.cuda.empty_cache()
+
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_"))
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = lm_train.main([
+        "--arch", LM_ARCH, "--full", "--device", "cuda",
+        "--steps", str(LM_TRAIN_STEPS), "--batch", str(LM_TRAIN_B),
+        "--seq", str(LM_TRAIN_S), "--save-every", str(10 * LM_TRAIN_STEPS),
+        "--ckpt", str(ckpt_root / "qwen2")])
+    train_s = time.perf_counter() - t0
+    train_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(ckpt_root / "qwen2", ignore_errors=True)
+    rows = res["out"]["metrics"]
+    losses = [r["loss"] for r in rows]
+    secs = np.array([r["sec"] for r in rows])
+    n = train_counts["flash_attention_cuda"]
+    tok_s = (LM_TRAIN_STEPS - 1) * LM_TRAIN_B * LM_TRAIN_S / secs[1:].sum()
+    log(f"[lm train] {cfg.name} bf16 launch.train.main B={LM_TRAIN_B} "
+        f"S={LM_TRAIN_S} {LM_TRAIN_STEPS} steps (AdamW, warmup-cosine lr "
+        f"3e-3, make_token_stream): {train_s:.2f} s with one final "
+        f"checkpoint; step wall (data and sync included) p50 "
+        f"{np.percentile(secs, 50) * 1e3:.3f} ms, p90 "
+        f"{np.percentile(secs, 90) * 1e3:.3f} ms, first step "
+        f"{secs[0] * 1e3:.1f} ms; "
+        f"{tok_s:.0f} tokens/s over steps 2-{LM_TRAIN_STEPS}; peak allocated "
+        f"{peak / 2**30:.2f} GiB; flash launches {n} "
+        f"({n / LM_TRAIN_STEPS:g} per step); loss "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("a qwen2 training loss is not finite")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"the qwen2 loss did not fall: {losses}")
+    if n != cfg.n_layers * LM_TRAIN_STEPS:
+        raise AssertionError(f"flash_attention_cuda launched {n} times in "
+                             f"{LM_TRAIN_STEPS} steps of {cfg.n_layers} "
+                             f"layers")
+    loop = res["loop"]
+    nxt = loop.batch_fn(LM_TRAIN_STEPS)
+    wall, busy, by_name = traced(
+        "lm train trace", lambda: loop.step_fn(loop.state, nxt),
+        launch_counts)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    del res, loop
+    torch.cuda.empty_cache()
+    # the chunk-recompute backward of one attention layer at this shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v, g = (torch.randn((LM_TRAIN_B, LM_TRAIN_S, h, D), device=dev,
+                              dtype=torch.bfloat16).transpose(1, 2)
+                  .requires_grad_() for h in (H, Hkv, Hkv, H))
+    out = FlashAttentionFn.apply(q, k, v, True, D ** -0.5, 0,
+                                 cfg.attn_q_chunk, cfg.attn_kv_chunk, True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), g.detach(), retain_graph=True), 3)
+    del q, k, v, g, out
+    log(f"[lm train] one traced train step B={LM_TRAIN_B} S={LM_TRAIN_S}: "
+        f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+        f"{100 * (1 - busy / wall):.1f}%; by activity: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+    log(f"[lm train] attention per layer at B={LM_TRAIN_B} S={LM_TRAIN_S} "
+        f"H={H}/{Hkv} D={D} bf16: kernel forward {flash_ms:.4f} ms (phase "
+        f"4c), chunk-recompute backward {bwd_ms:.3f} ms per call; x "
+        f"{cfg.n_layers} layers: {bwd_ms * cfg.n_layers:.1f} ms, "
+        f"{100 * bwd_ms * cfg.n_layers / busy:.1f}% of the traced step's "
+        f"busy time")
+
+    # -- (c) mamba2-130m at full width ---------------------------------------
+    mcfg = lm_configs.get("mamba2_130m")
+    m32 = dataclasses.replace(mcfg, dtype="float32")
+    pm = lm.init_params(m32, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, mcfg.vocab, (LM_CHECK_BATCH, LM_CHECK_LEN))).to(dev)
+    mbatch = {"tokens": toks, "labels": toks}
+    opt = adamw(LM_TRAIN_LR)
+    step = lm_steps.make_train_step(m32, opt)
+    _, _, m_fixed = step(pm, opt.init(pm), mbatch)
+    fixed = lm_mamba2._intra_decay
+    # the reference's order (src/repro/models/mamba2.py:58-61)
+    lm_mamba2._intra_decay = lambda diff, mask: torch.where(
+        mask, torch.exp(diff), 0.0)
+    try:
+        _, _, m_ref = step(pm, opt.init(pm), mbatch)
+    finally:
+        lm_mamba2._intra_decay = fixed
+    log(f"[lm train] mamba2-130m f32 B={LM_CHECK_BATCH} S={LM_CHECK_LEN} "
+        f"chunk {mcfg.ssm.chunk}: grad_norm {float(m_fixed['grad_norm'])!r} "
+        f"with exp after the mask, {float(m_ref['grad_norm'])!r} with the "
+        f"reference's exp then mask (loss {float(m_fixed['loss']):.6f} / "
+        f"{float(m_ref['loss']):.6f})")
+    if not math.isfinite(float(m_fixed["grad_norm"])):
+        raise AssertionError("mamba2 grad_norm is not finite")
+    if math.isfinite(float(m_ref["grad_norm"])):
+        raise AssertionError("the reference's SSD order gave a finite "
+                             "grad_norm: the repair is not shown")
+    if float(m_fixed["loss"]) != float(m_ref["loss"]):
+        raise AssertionError("the two SSD orders differ in the forward")
+    del pm
+    torch.cuda.empty_cache()
+
+    sample = make_token_stream(SEED, mcfg.vocab)
+    mopt = adamw(linear_warmup_cosine(3e-3, 10, SSD_TRAIN_STEPS))
+    mstep = lm_steps.make_train_step(mcfg, mopt)
+    init = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED),
+                          dev)
+
+    def step_fn(state, batch):
+        p, o = state
+        p, o, m = mstep(p, o, batch)
+        return (p, o), m
+
+    def batch_fn(i):
+        t = sample(i, LM_TRAIN_B, LM_TRAIN_S).to(dev)
+        return {"tokens": t, "labels": t}
+
+    def mloop(name, inject=None):
+        return TrainLoop(step_fn, batch_fn, (init, mopt.init(init)),
+                         LoopConfig(total_steps=SSD_TRAIN_STEPS,
+                                    ckpt_dir=str(ckpt_root / name),
+                                    save_every=SSD_SAVE_EVERY, keep=2,
+                                    async_save=True,
+                                    inject_failure_at=inject))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref = mloop("ref")
+    ref_out = ref.run()
+    ref_s = time.perf_counter() - t0
+    mpeak = torch.cuda.max_memory_allocated(dev)
+    mnext = batch_fn(SSD_TRAIN_STEPS)
+    mwall, mbusy, mby_name = traced(
+        "mamba2 train trace", lambda: step_fn(ref.state, mnext),
+        launch_counts)
+    mtop = sorted(mby_name.items(), key=lambda kv: -kv[1])[:6]
+    crash = mloop("crash", inject=SSD_FAIL_AT)
+    try:
+        crash.run()
+        raise AssertionError("the injected failure did not fire")
+    except InjectedFailure as e:
+        failed_at = str(e)
+    crash.mgr.wait()            # the crashed run's async write lands first
+    resumed = mloop("crash")
+    resumed_out = resumed.run()
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    diff = [(name, float((a.double() - b.double()).abs().max()))
+            for name, a, b in zip(paths(ref.state), leaves(resumed.state),
+                                  leaves(ref.state)) if not torch.equal(a, b)]
+    mlosses = [r["loss"] for r in ref_out["metrics"]]
+    msecs = [r["sec"] * 1e3 for r in ref_out["metrics"]]
+    log(f"[lm train] mamba2-130m bf16 TrainLoop B={LM_TRAIN_B} "
+        f"S={LM_TRAIN_S} {SSD_TRAIN_STEPS} steps (checkpoint every "
+        f"{SSD_SAVE_EVERY}, async): {ref_s:.2f} s; step walls "
+        + " ".join(f"{x:.1f}" for x in msecs) + " ms; loss "
+        + " ".join(f"{x:.4f}" for x in mlosses)
+        + f"; {failed_at}; the relaunch restored step {resumed.start_step} "
+        f"and ran {len(resumed_out['metrics'])} steps; final state of "
+        f"{len(leaves(ref.state))} leaves torch.equal to the uninterrupted "
+        f"run: {not diff}" + (f"; differing leaves {diff[:5]}" if diff
+                              else ""))
+    log(f"[lm train] mamba2-130m: peak allocated {mpeak / 2**30:.2f} GiB; "
+        f"one traced train step B={LM_TRAIN_B} S={LM_TRAIN_S}: wall "
+        f"{mwall:.3f} ms, device busy {mbusy:.3f} ms, idle "
+        f"{100 * (1 - mbusy / mwall):.1f}%; by activity: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in mtop))
+    if not all(np.isfinite(mlosses)):
+        raise AssertionError("a mamba2 training loss is not finite")
+    if resumed.start_step == 0 or diff or [
+            r["loss"] for r in resumed_out["metrics"]] != mlosses[
+                resumed.start_step:]:
+        raise AssertionError("the resumed mamba2 run does not equal the "
+                             "uninterrupted one")
+    seconds = time.perf_counter() - t_phase
+    log(f"[lm train] phase 14: {seconds:.2f} s")
+    return {"train_launches": n, "steps": LM_TRAIN_STEPS,
+            "seconds": seconds}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2604,6 +2993,9 @@ def main() -> int:
     train_phase(dev, store_root, p50s["serve dp"])
     shutil.rmtree(store_root, ignore_errors=True)
 
+    # -- 14. LM training ---------------------------------------------------
+    lm_train = lm_train_phase(dev, k3["ms"])
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -2627,7 +3019,11 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"],
          "launches_by_path": {
-             LM_ARCH: lm_counts["flash_attention_cuda"], **family_launches},
+             LM_ARCH: lm_counts["flash_attention_cuda"], **family_launches,
+             f"{LM_ARCH} train ({lm_train['steps']} steps)":
+                 lm_train["train_launches"]},
+         "launches_per_train_step": {
+             LM_ARCH: lm_train["train_launches"] / lm_train["steps"]},
          "ms_by_shape": {a: r["ms"] for a, r in flash_times.items()},
          "bound_ms_by_shape": {a: r["bound_ms"]
                                for a, r in flash_times.items()}},

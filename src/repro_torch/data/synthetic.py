@@ -12,7 +12,11 @@ fall within a few hundred steps.  The JAX package draws it from
 port's own: it keeps the reference's properties (a pure function of
 ``(seed, step)``, so training resumes exactly; each step's tokens
 differ; the next token depends on the last ``order`` tokens through a
-fixed random transition law), not its bits.
+fixed random transition law), not its bits.  Nor its cost: the
+reference draws ``vocab`` normals for every token it samples, O(batch x
+seq x vocab) work a batch, which a host cannot keep up with at a full
+LM vocab; here each context's law is a fixed table row of ``SUPPORT``
+candidates, so a token costs O(``SUPPORT``).
 """
 
 from __future__ import annotations
@@ -54,33 +58,44 @@ def _generator(*words: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed & (2**63 - 1))
 
 
+# the token law: each context hashes to one of BUCKETS table rows of
+# SUPPORT candidate tokens with fixed logits
+SUPPORT = 64
+BUCKETS = 1 << 14
+
+
 def make_token_stream(
     seed: int, vocab: int, order: int = 2, temperature: float = 0.5
 ):
     """Returns ``sample(step, batch, seq)`` -> int32 CPU tokens (batch,
     seq) drawn from a fixed random k-gram process: a pure function of
-    ``(seed, step)``, so resumable.  The next token given the context
-    ``ctx`` is drawn from ``softmax(logits(h) / temperature)``, where
-    ``h = sum(ctx * folds)`` and ``logits(h)`` is a standard normal
-    vector from a generator seeded by ``(seed, 13, h)``."""
+    ``(seed, step)``, so resumable.  The context ``ctx`` (the last
+    ``order`` tokens) picks the table row ``h = sum(ctx * folds) mod
+    BUCKETS``; the next token is one of the row's ``SUPPORT`` candidates,
+    drawn from ``softmax(logits[h] / temperature)`` (by Gumbel-max).
+    Candidates follow a Zipf law over the vocab (token ``t`` about as
+    often as ``1 / (t + 1)``), as words do, and the logits are standard
+    normal; both tables are drawn once from generators seeded by
+    ``(seed, 13)``."""
     folds = torch.randint(1, 2**20, (order,), generator=_generator(seed, 7),
                           dtype=torch.int64)
+    table = _generator(seed, 13)
+    u = torch.rand((BUCKETS, SUPPORT), generator=table, dtype=torch.float64)
+    cand = torch.clamp(torch.floor((vocab + 1.0) ** u).long() - 1,
+                       0, vocab - 1)
+    logits = torch.randn((BUCKETS, SUPPORT), generator=table) / temperature
 
     def sample(step: int, batch: int, seq: int) -> torch.Tensor:
         gen = _generator(seed, 1, step)
         ctx = torch.randint(0, vocab, (batch, order), generator=gen,
                             dtype=torch.int64)
-        table: dict = {}
+        gumbel = -torch.log(-torch.log(
+            torch.rand((seq, batch, SUPPORT), generator=gen)))
         toks = torch.empty((batch, seq), dtype=torch.int64)
         for i in range(seq):
-            h = (ctx * folds).sum(dim=-1).tolist()
-            for hh in h:
-                if hh not in table:
-                    table[hh] = torch.randn(
-                        vocab, generator=_generator(seed, 13, hh))
-            logits = torch.stack([table[hh] for hh in h]) / temperature
-            nxt = torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                                    generator=gen)[:, 0]
+            h = (ctx * folds).sum(dim=-1) % BUCKETS
+            pick = torch.argmax(logits[h] + gumbel[i], dim=-1)
+            nxt = cand[h, pick]
             toks[:, i] = nxt
             ctx = torch.cat([ctx[:, 1:], nxt[:, None]], dim=1)
         return toks.to(torch.int32)

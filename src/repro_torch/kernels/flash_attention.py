@@ -21,6 +21,14 @@ On a CPU tensor the wrapper computes the plain version
 or raises.  Ragged Sq and Sk are masked inside the kernel, so neither
 path pads.
 
+The kernel has no backward, nor has the Pallas kernel.  The gradient
+comes from :class:`FlashAttentionFn`: its forward is the kernel (or,
+on CPU tensors, the plain version), its backward recomputes attention
+one query chunk at a time under autograd (:func:`attention_rows`), as
+the JAX package differentiates its pure-XLA ``chunked_attention``
+through ``jax.checkpoint`` of each query chunk.  The backward holds one
+chunk's scores at a time, never (B, H, Sq, Sk).
+
 Masked keys get probability exactly 0, and key tiles masked for every
 query of a tile are skipped; for a query that sees at least one key this
 is the Pallas kernel's arithmetic (its finite -1e30 mask underflows to
@@ -189,3 +197,97 @@ def flash_attention_cuda(
 
 
 flash_attention_cuda.launches = 0
+
+
+def attention_rows(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+    kv_offset: int,
+) -> torch.Tensor:
+    """Softmax attention of a slice of queries against the keys, in one
+    piece: q (B,H,n,D), k/v (B,Hkv,Sk,D) -> (B,H,n,D) float32, the
+    scores (B,H,n,Sk') of the keys any of these queries can see held
+    whole.  Same function as :func:`flash_attention_plain` (masked keys
+    weigh exactly 0, a query that sees no key gets a zero row), without
+    the running max and rescales: :class:`FlashAttentionFn` recomputes
+    it under autograd one query chunk at a time."""
+    B, H, n, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    k_end = max(0, min(Sk, n + kv_offset)) if causal else Sk
+    qg = q.float().reshape(B, Hkv, g, n, D)
+    kb = k.float()[:, :, None, :k_end]
+    vb = v.float()[:, :, None, :k_end]
+    s = torch.einsum("bkgqd,bkgjd->bkgqj", qg, kb) * scale
+    if causal:
+        ok = (torch.arange(k_end, device=q.device)[None, :]
+              <= torch.arange(n, device=q.device)[:, None] + kv_offset)
+        p = torch.where(ok, torch.softmax(torch.where(ok, s, NEG), dim=-1),
+                        0.0)
+    else:
+        p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqj,bkgjd->bkgqd", p, vb).reshape(B, H, n, D)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: q (B,H,Sq,D), k/v (B,Hkv,Sk,D) ->
+    (B,H,Sq,D), differentiable in q, k and v.
+
+    ``apply(q, k, v, causal, scale, kv_offset, q_chunk, kv_chunk,
+    kernel)``.  The forward is :func:`flash_attention_cuda` when
+    ``kernel`` is true (one launch on CUDA tensors), else
+    :func:`flash_attention_plain`; on CPU tensors both are the plain
+    version over ``q_chunk`` x ``kv_chunk`` blocks.  Only q, k and v are
+    saved.  The backward recomputes the attention of one ``q_chunk``
+    slice of the queries at a time (:func:`attention_rows`, float32)
+    and takes its gradient with ``torch.autograd.grad``: the reference's
+    ``jax.checkpoint(q_body)``, whose XLA body becomes plain PyTorch
+    here, held to one chunk's scores.  dk and dv sum over the chunks in
+    float32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, kv_offset: int,
+                q_chunk: int, kv_chunk: int, kernel: bool):
+        q_blk = min(q_chunk, q.shape[2]) or 1
+        k_blk = min(kv_chunk, k.shape[2]) or 1
+        if kernel and q.device.type != "cpu":
+            out = flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                       kv_offset=kv_offset)
+        else:
+            out = flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                        kv_offset=kv_offset, q_blk=q_blk,
+                                        k_blk=k_blk)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, scale, kv_offset, q_blk)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        causal, scale, off, q_blk = ctx.args
+        dq = torch.empty_like(q)
+        # float32 leaves: the recompute runs in float32, so its gradients
+        # stay float32 until the one rounding at the end
+        kf = k.detach().float().requires_grad_()
+        vf = v.detach().float().requires_grad_()
+        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+        for q0 in range(0, q.shape[2], q_blk):
+            rows = slice(q0, q0 + q_blk)
+            with torch.enable_grad():
+                qi = q[:, :, rows].detach().float().requires_grad_()
+                oi = attention_rows(qi, kf, vf, causal=causal, scale=scale,
+                                    kv_offset=off + q0)
+                # a chunk that sees no key leaves its inputs unused
+                gq, gk, gv = torch.autograd.grad(
+                    oi, (qi, kf, vf), grad_out[:, :, rows].float(),
+                    allow_unused=True)
+            dq[:, :, rows] = 0 if gq is None else gq
+            if gk is not None:
+                dk += gk
+                dv += gv
+        return (dq, dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)

@@ -1,5 +1,7 @@
 """Launchers: ``python -m repro_torch.launch.serve`` prefills and
-greedily decodes a batch of prompts (see its docstring);
+greedily decodes a batch of prompts, ``python -m
+repro_torch.launch.train`` trains an LM on the token stream (see their
+docstrings);
 :mod:`repro_torch.launch.hillclimb` holds the BNN mapping hillclimb."""
 
 __all__ = []

@@ -8,7 +8,10 @@ shared-expert MLP (``moe.moe_ffn``); ``ssm`` stacks Mamba2 SSD blocks
 block after every ``attn_every`` of them.  Prefill attention is
 ``modules.chunked_attention``, which launches the hand-written flash
 kernel on CUDA tensors; decode attention is a plain grouped einsum over
-the KV cache.  The train step is not ported yet.
+the KV cache.  Training: ``steps.loss_fn`` and ``steps.make_train_step``
+differentiate the dict-tree params with ``torch.autograd.grad``;
+attention's gradient recomputes the plain body one query chunk at a
+time (``kernels.flash_attention.FlashAttentionFn``).
 """
 
 from repro_torch.models.config import (
@@ -18,10 +21,13 @@ from repro_torch.models.config import (
     SSMConfig,
 )
 from repro_torch.models.steps import (
+    MOE_AUX_WEIGHT,
     decode_cache,
     greedy_decode,
+    loss_fn,
     make_prefill_step,
     make_serve_step,
+    make_train_step,
 )
 from repro_torch.models.transformer import (
     Cache,
@@ -33,6 +39,7 @@ from repro_torch.models.transformer import (
 )
 
 __all__ = [
+    "MOE_AUX_WEIGHT",
     "Cache",
     "HybridConfig",
     "ModelConfig",
@@ -43,8 +50,10 @@ __all__ = [
     "greedy_decode",
     "init_cache",
     "init_params",
+    "loss_fn",
     "make_prefill_step",
     "make_serve_step",
+    "make_train_step",
     "params_from_jax",
     "params_to_numpy",
 ]

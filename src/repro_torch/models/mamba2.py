@@ -31,6 +31,28 @@ def constrain_ssd(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _repeat_groups(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., G, N) -> (..., heads, N), group g repeated over its
+    heads // G consecutive heads (``jnp.repeat`` on the group axis).
+    Written as a broadcast, not ``repeat_interleave``: its backward on
+    the card adds through atomics in no fixed order, a broadcast's
+    backward is a sum, so a train step on the card gives the same bits
+    run after run."""
+    *lead, G, N = t.shape
+    return t[..., None, :].expand(*lead, G, heads // G, N).reshape(
+        *lead, heads, N)
+
+
+def _intra_decay(diff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """exp(diff) on and below the diagonal, 0 above it.  The mask is
+    applied before ``exp``: above the diagonal ``diff`` is positive and
+    reaches dt * |A| * Q, past f32's ``exp`` range at the full configs'
+    chunk of 128, and the reference's ``where(mask, exp(diff), 0)``
+    then differentiates to 0 * inf = NaN.  exp(-inf) is the 0 the
+    reference selects, so the forward is the same bit for bit."""
+    return torch.exp(torch.where(mask, diff, float("-inf")))
+
+
 def ssd_chunked(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -53,11 +75,10 @@ def ssd_chunked(
         Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
 
-    rep = H // G
     xc = x.reshape(Bsz, nc, Q, H, P).float()
     dtc = dt.reshape(Bsz, nc, Q, H).float()
-    Bc = Bm.reshape(Bsz, nc, Q, G, N).float().repeat_interleave(rep, dim=3)
-    Cc = Cm.reshape(Bsz, nc, Q, G, N).float().repeat_interleave(rep, dim=3)
+    Bc = _repeat_groups(Bm.reshape(Bsz, nc, Q, G, N).float(), H)
+    Cc = _repeat_groups(Cm.reshape(Bsz, nc, Q, G, N).float(), H)
 
     dA = dtc * A.float()                         # (B,nc,Q,H), negative
     cum = torch.cumsum(dA, dim=2)                # inclusive cumsum
@@ -66,8 +87,8 @@ def ssd_chunked(
     CB = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,K,H)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    M = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                    0.0).permute(0, 1, 4, 2, 3)  # (B,nc,H,Q,K)
+    M = _intra_decay(diff, mask[None, None, :, :, None]).permute(
+        0, 1, 4, 2, 3)                           # (B,nc,H,Q,K)
     scores = CB * M * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores, xc)
 

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import (
-    flash_attention_cuda,
+    FlashAttentionFn,
     flash_attention_plain,
 )
 
@@ -68,27 +68,28 @@ def chunked_attention(
     kv_offset: int = 0,
     remat_chunks: bool = True,
 ) -> torch.Tensor:
-    """Blockwise-softmax (flash) attention.
+    """Blockwise-softmax (flash) attention, differentiable in q, k, v.
 
     q (B,Sq,H,D); k,v (B,Sk,Hkv,D). Causal uses suffix alignment:
     query i attends to keys j <= i + kv_offset (kv_offset = Sk - Sq for
     aligned prefill). Returns (B,Sq,H,D) in q.dtype.
 
-    On CUDA tensors this launches the hand-written kernel
-    (``flash_attention_cuda``) once, on (B,H,S,D) views of the operands,
-    and raises for what the kernel does not take (a dtype other than f32
-    or bf16, a head dim other than 32, 64, 112 or 128); ``q_chunk`` and
-    ``kv_chunk`` are the kernel's business there (its own 64 x 64
-    tiles).  On CPU tensors it runs the plain body,
-    :func:`chunked_attention_plain`.
+    Runs through :class:`FlashAttentionFn` on (B,H,S,D) views of the
+    operands.  On CUDA tensors its forward launches the hand-written
+    kernel (``flash_attention_cuda``) once, and raises for what the
+    kernel does not take (a dtype other than f32 or bf16, a head dim
+    other than 32, 64, 112 or 128); ``q_chunk`` and ``kv_chunk`` are the
+    kernel's business there (its own 64 x 64 tiles).  On CPU tensors the
+    forward is the plain body over ``q_chunk`` x ``kv_chunk`` blocks.
+    The gradient, on either device, recomputes attention in plain
+    PyTorch one ``q_chunk`` of queries at a time (the reference's
+    ``jax.checkpoint`` of each query chunk), whatever ``remat_chunks``
+    says: the kernel's forward keeps nothing to differentiate.
     """
-    if q.device.type == "cpu":
-        return chunked_attention_plain(
-            q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
-            kv_offset=kv_offset, remat_chunks=remat_chunks)
-    out = flash_attention_cuda(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, scale=q.shape[-1] ** -0.5, kv_offset=kv_offset)
+    del remat_chunks
+    out = FlashAttentionFn.apply(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+        q.shape[-1] ** -0.5, kv_offset, q_chunk, kv_chunk, True)
     return out.transpose(1, 2)
 
 
@@ -106,13 +107,19 @@ def chunked_attention_plain(
     """The plain body of :func:`chunked_attention` on any device: the
     blockwise softmax of ``flash_attention_plain`` over ``q_chunk`` x
     ``kv_chunk`` blocks, as the JAX package's pure-XLA version runs it.
-    ``remat_chunks`` is kept for signature parity; the port has no
-    backward yet."""
-    del remat_chunks
-    out = flash_attention_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, scale=q.shape[-1] ** -0.5, kv_offset=kv_offset,
-        q_blk=min(q_chunk, q.shape[1]), k_blk=min(kv_chunk, k.shape[1]))
+    With ``remat_chunks`` (the reference's ``jax.checkpoint`` of each
+    query chunk) the backward recomputes one query chunk at a time
+    (:class:`FlashAttentionFn` with the plain forward); without it,
+    autograd keeps every block's scores of the forward."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    scale = q.shape[-1] ** -0.5
+    if remat_chunks:
+        out = FlashAttentionFn.apply(qt, kt, vt, causal, scale, kv_offset,
+                                     q_chunk, kv_chunk, False)
+    else:
+        out = flash_attention_plain(
+            qt, kt, vt, causal=causal, scale=scale, kv_offset=kv_offset,
+            q_blk=min(q_chunk, q.shape[1]), k_blk=min(kv_chunk, k.shape[1]))
     return out.transpose(1, 2)
 
 

@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import modules as M
@@ -251,10 +252,14 @@ def params_to_numpy(params: dict) -> dict:
     return _map_tree(one, params)
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer i of a stacked block tree (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+def _layers(tree: dict, n: int) -> list:
+    """The n layers of a stacked block tree, each a dict of views, from
+    one ``unbind`` per leaf: its backward stacks the layers' gradients
+    once, where indexing layer by layer would add a full-size gradient
+    per layer."""
+    cols = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
             for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +393,11 @@ def mamba_block_apply(
 
 
 def _embed(cfg: ModelConfig, params, tokens, frontend_embeds):
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    # F.embedding, not indexing: both gather the same rows, but only
+    # embedding's backward sums repeated tokens in a fixed order on the
+    # CPU (indexing's accumulating index_put_ does not), so a training
+    # step gives the same bits run after run
+    x = F.embedding(tokens.long(), params["embed"]).to(_dtype(cfg))
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(_dtype(cfg)), x], dim=1)
     return x
@@ -454,11 +463,11 @@ def forward(
 
 def _forward_attn(cfg, params, x, positions, cache, decode, return_cache,
                   attention, aux):
-    blocks = params["blocks"]
+    blocks = _layers(params["blocks"], cfg.n_layers)
     if decode:
         for i in range(cfg.n_layers):
             x, _, a = attn_block_apply(
-                cfg, _layer(blocks, i), x, None,
+                cfg, blocks[i], x, None,
                 cache={"k": cache["k"][i], "v": cache["v"][i]},
                 cache_len=cache["len"],
             )
@@ -467,7 +476,7 @@ def _forward_attn(cfg, params, x, positions, cache, decode, return_cache,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, (k, v), a = attn_block_apply(
-            cfg, _layer(blocks, i), x, positions, attention=attention)
+            cfg, blocks[i], x, positions, attention=attention)
         aux = aux + a
         if return_cache:
             ks.append(k)
@@ -481,19 +490,19 @@ _SSM_CACHE_KEYS = ("conv_x", "conv_bc", "ssd")
 
 
 def _mamba_layers(cfg, blocks, x, layers, cache, decode, caches):
-    """Mamba blocks ``layers`` of the stack.  Decode reads layer i's
-    state from ``cache`` and writes the new one back in place; prefill
-    appends each layer's handoff state to ``caches`` (a list) when it is
-    not None."""
+    """Mamba blocks ``layers`` of the stack (``blocks``: the per-layer
+    list of :func:`_layers`).  Decode reads layer i's state from
+    ``cache`` and writes the new one back in place; prefill appends each
+    layer's handoff state to ``caches`` (a list) when it is not None."""
     for i in layers:
         if decode:
             x, nc = mamba_block_apply(
-                cfg, _layer(blocks, i), x,
+                cfg, blocks[i], x,
                 cache={k: cache[k][i] for k in _SSM_CACHE_KEYS})
             for k in _SSM_CACHE_KEYS:
                 cache[k][i] = nc[k]
         else:
-            x, nc = mamba_block_apply(cfg, _layer(blocks, i), x)
+            x, nc = mamba_block_apply(cfg, blocks[i], x)
             if caches is not None:
                 caches.append(nc)
     return x
@@ -506,8 +515,8 @@ def _stack_states(caches: list) -> dict:
 
 def _forward_ssm(cfg, params, x, cache, decode, return_cache):
     caches = [] if return_cache and not decode else None
-    x = _mamba_layers(cfg, params["blocks"], x, range(cfg.n_layers), cache,
-                      decode, caches)
+    x = _mamba_layers(cfg, _layers(params["blocks"], cfg.n_layers), x,
+                      range(cfg.n_layers), cache, decode, caches)
     if decode:
         return x, {k: cache[k] for k in _SSM_CACHE_KEYS}
     return x, None if caches is None else _stack_states(caches)
@@ -526,7 +535,8 @@ def _forward_hybrid(cfg, params, x, positions, cache, decode, return_cache,
     k-layer segment (its KV cache is stacked over the n_seg segments),
     and the tail layers have no block after them."""
     k, n_seg, _ = _hybrid_split(cfg)
-    blocks, shared = params["blocks"], params["shared"]
+    blocks = _layers(params["blocks"], cfg.n_layers)
+    shared = params["shared"]
     caches = [] if return_cache and not decode else None
     ks, vs = [], []
     for s in range(n_seg):

@@ -52,11 +52,15 @@ def _sched(lr, step: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled so their global L2 norm is at most `max_norm`, the
-    norm before scaling)."""
+    norm before scaling).  The scaled leaves take JAX's type promotion
+    of ``g * scale`` against the float32 scale: a bfloat16 gradient
+    comes back float32, as the JAX package's does."""
     flat = leaves(grads)
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gnorm
+    return tree_map(
+        lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
+        grads), gnorm
 
 
 def adamw(

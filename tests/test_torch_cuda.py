@@ -712,3 +712,104 @@ def test_grok_smoke_forward_on_the_card_equals_the_cpu_forward(dev):
     dec, _ = step(params, full, nxt)
     dec_d, _ = step(pd, full_d, nxt.to(dev))
     assert _rel(dec_d, dec) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the gradient through kernel 3 (FlashAttentionFn: the kernel's forward,
+# the plain body recomputed by query chunk in the backward) against plain
+# autograd through flash_attention_plain on the same card; f32 at 1e-4,
+# bf16 at 2e-2 (the JAX bf16 test's), relative to the largest magnitude
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2, 7])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
+def test_flash_attention_fn_gradient_matches_plain_autograd(dev, d, group,
+                                                            dt):
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+
+    dtype = getattr(torch, dt)
+    b, hkv, s = 2, 2, 200
+    rng = np.random.default_rng(1000 + d + group)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, dtype)
+        for shape in ((b, s, hkv * group, d), (b, s, hkv, d),
+                      (b, s, hkv, d), (b, s, hkv * group, d)))
+
+    def grads(fn):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = fn(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2))
+        launched = flash_attention_cuda.launches
+        got = torch.autograd.grad((out.transpose(1, 2).float() * w.float())
+                                  .sum(), (qq, kk, vv))
+        assert flash_attention_cuda.launches == launched   # no backward kernel
+        return out, got
+
+    before = flash_attention_cuda.launches
+    out, got = grads(lambda qt, kt, vt: FlashAttentionFn.apply(
+        qt, kt, vt, True, d ** -0.5, 0, 64, 128, True))
+    assert flash_attention_cuda.launches == before + 1
+    assert out.grad_fn is not None and out.dtype == dtype
+    _, want = grads(lambda qt, kt, vt: flash_attention_plain(
+        qt, kt, vt, causal=True, kv_offset=0, q_blk=64, k_blk=128))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for label, a, c in zip("qkv", got, want):
+        assert a.dtype == dtype and _rel(a, c.cpu()) <= tol, (label,
+                                                             _rel(a, c.cpu()))
+
+
+def test_chunked_attention_on_the_card_carries_a_gradient(dev):
+    q = torch.randn((1, 70, 4, 32), device=dev, requires_grad=True)
+    k = torch.randn((1, 70, 2, 32), device=dev, requires_grad=True)
+    out = T_MOD.chunked_attention(q, k, k, causal=True, q_chunk=32,
+                                  kv_chunk=32)
+    assert out.grad_fn is not None
+    gq, gk = torch.autograd.grad(out.sum(), (q, k))
+    assert gq.is_cuda and gk.is_cuda and bool(torch.isfinite(gk).all())
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu_step(dev):
+    """qwen2's smoke config widened to head dim 32 (the kernel refuses
+    the smoke config's 16), f32 with TF32 off: one AdamW step on the
+    card through the kernel against the same step on CPU tensors.  Loss,
+    ce and grad_norm within a relative 1e-5, the updated params within
+    0.05 x lr where the clipped gradient is at least 1e-6 (2 x lr
+    below: rounding decides the step), and one kernel launch per layer
+    in the card step."""
+    from repro_torch.models import steps as T_S
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten, leaves, unflatten
+
+    cfg, params = _smoke_params("qwen2_0_5b", head_dim=32)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    lr = 1e-3
+    opt = adamw(lr)
+    step = T_S.make_train_step(cfg, opt)
+    matmul = torch.backends.cuda.matmul
+    prev, matmul.allow_tf32 = matmul.allow_tf32, False
+    try:
+        p_cpu, _, m_cpu = step(params, opt.init(params),
+                               {"tokens": toks, "labels": toks})
+        pd = _to(params, dev)
+        before = flash_attention_cuda.launches
+        p_dev, _, m_dev = step(pd, opt.init(pd), {"tokens": toks.to(dev),
+                                                  "labels": toks.to(dev)})
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches == before + cfg.n_layers
+        flat, tdef = flatten(params)
+        live = [t.clone().requires_grad_() for t in flat]
+        loss, _ = T_S.loss_fn(cfg, unflatten(tdef, live), toks, toks)
+        g_cpu = torch.autograd.grad(loss, live)
+    finally:
+        matmul.allow_tf32 = prev
+    for k in ("loss", "ce", "grad_norm"):
+        assert abs(float(m_dev[k]) - float(m_cpu[k])) <= 1e-5 * abs(
+            float(m_cpu[k])), k
+    clip = min(1.0, 1.0 / (float(m_cpu["grad_norm"]) + 1e-9))
+    for a, b, g in zip(leaves(p_dev), leaves(p_cpu), g_cpu):
+        d = (a.cpu() - b).abs()
+        firm = (clip * g).abs() >= 1e-6
+        assert float(d[firm].max()) <= 0.05 * lr
+        assert float(d.max()) <= 2 * lr

@@ -204,6 +204,20 @@ def test_clip_by_global_norm_equals_reference(scale):
     assert total.item() <= 1.0 + 1e-5
 
 
+def test_clip_by_global_norm_promotes_bf16_like_reference():
+    """A bfloat16 gradient times the float32 scale is float32 in JAX;
+    the port's clip returns the same dtype and the same bits."""
+    g = np.random.default_rng(3).standard_normal(64).astype(np.float32) * 3
+    r_c, r_n = R_optim.clip_by_global_norm(
+        {"a": jnp.asarray(g, jnp.bfloat16)}, 1.0)
+    t_c, t_n = T_optim.clip_by_global_norm(
+        {"a": torch.from_numpy(g).to(torch.bfloat16)}, 1.0)
+    assert r_c["a"].dtype == jnp.float32 and t_c["a"].dtype == torch.float32
+    assert t_n.item() == pytest.approx(float(r_n), rel=RTOL)
+    np.testing.assert_allclose(t_c["a"].numpy(), np.asarray(r_c["a"]),
+                               rtol=RTOL)
+
+
 def test_schedules_equal_reference():
     pairs = [
         (R_optim.constant_schedule(0.3), T_optim.constant_schedule(0.3)),
@@ -494,23 +508,43 @@ def test_bnn_train_loop_resumes_to_the_uninterrupted_state(tmp_path):
         r["loss"] for r in ref_out["metrics"]][2:]
 
 
-def test_loop_flags_a_straggling_step(tmp_path):
-    import time
+def test_loop_flags_a_straggling_step(tmp_path, monkeypatch):
+    """The watchdog on a scripted clock: the loop's ``time.perf_counter``
+    advances only inside the step, 25 ticks for step 4 and 1 for every
+    other, so the flags depend on the script, not on the host's speed.
+    The JAX package's loop runs the same script and flags the same
+    steps."""
+    import types
 
-    seen = []
+    from repro.runtime import TrainLoop as R_TrainLoop
+    from repro.runtime import loop as R_loop
+    from repro.runtime.loop import LoopConfig as R_LoopConfig
+    from repro_torch.runtime import loop as T_loop
 
-    def step_fn(state, batch):
-        time.sleep(0.05 if batch == 4 else 0.002)
-        return state, {"loss": torch.tensor(float(batch))}
+    now = [0.0]
+    clock = types.SimpleNamespace(perf_counter=lambda: now[0])
+    monkeypatch.setattr(T_loop, "time", clock)
+    monkeypatch.setattr(R_loop, "time", clock)
 
-    cfg = LoopConfig(total_steps=6, ckpt_dir=str(tmp_path / "ck"),
-                     save_every=100)
-    loop = TrainLoop(step_fn, lambda s: s, {"w": torch.zeros(1)}, cfg,
-                     on_straggler=lambda step, dt: seen.append(step))
-    out = loop.run()
+    def run(loop_cls, cfg_cls, state, metric, name):
+        seen = []
+
+        def step_fn(state, batch):
+            now[0] += 0.025 if batch == 4 else 0.001
+            return state, {"loss": metric(float(batch))}
+
+        cfg = cfg_cls(total_steps=6, ckpt_dir=str(tmp_path / name),
+                      save_every=100)
+        out = loop_cls(step_fn, lambda s: s, state, cfg,
+                       on_straggler=lambda step, dt: seen.append(step)).run()
+        return seen, [r["straggler"] for r in out["metrics"]]
+
+    seen, flags = run(TrainLoop, LoopConfig, {"w": torch.zeros(1)},
+                      torch.tensor, "port")
     assert seen == [4]
-    assert [r["straggler"] for r in out["metrics"]] == [False] * 4 + [True,
-                                                                       False]
+    assert flags == [False] * 4 + [True, False]
+    assert run(R_TrainLoop, R_LoopConfig, {"w": jnp.zeros(1)}, jnp.asarray,
+               "ref") == (seen, flags)
 
 
 # --------------------------- data pipeline --------------------------------
