@@ -1,12 +1,11 @@
 """Elastic host-pool control: grow on sustained high occupancy,
 drain-then-retire on sustained low, journal every decision.
 
-The JAX package re-exports its device re-meshing seed here as
-``remesh_state`` (the state-migration hook for tenants whose
-parameters are sharded across a host's devices); the port keeps the
-name, and :func:`remesh_state` raises until the sharding layer is
-ported (queue 1 item 12.4).  No BNN path calls it.  The control loop
-over the serving cluster:
+Re-exported here: :func:`~repro_torch.runtime.elastic.remesh_state`,
+the state-migration hook for tenants whose parameters are sharded
+across a host's devices (it places a params tree as DTensors on a new
+``DeviceMesh``).  No BNN path calls it.  The control loop over the
+serving cluster:
 
 * the controller watches each host's **windowed occupancy** (busy
   fraction of its recent dispatch rounds — the host-level roll-up of
@@ -38,19 +37,9 @@ import dataclasses
 import time
 
 from repro_torch.cluster.host import ACTIVE, DRAINING
+from repro_torch.runtime.elastic import remesh_state
 
 __all__ = ["ElasticController", "ScaleRecord", "remesh_state"]
-
-
-def remesh_state(cfg, state, new_mesh, scheme=None):
-    """Reshard LM parameters onto a new device mesh.  Not ported: it
-    needs the sharding layer of the LM substrate (queue 1 item 12.4);
-    no BNN serving path calls it."""
-    del cfg, state, new_mesh, scheme
-    raise NotImplementedError(
-        "remesh_state needs the LM sharding layer, which the port does "
-        "not have yet (queue 1 item 12.4)"
-    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Assigned-architecture registry, pure data: ``get(name)`` -> full
 ModelConfig, ``get_smoke(name)`` -> reduced same-family config for CPU
-tests.  A copy of ``repro.configs`` without ``input_specs``, which waits
-for the dry-run port.
+tests, ``input_specs(cfg, shape)`` -> ``meta``-tensor stand-ins per
+cell: a copy of ``repro.configs``.
 
 Shapes (assigned to every LM arch):
   train_4k     seq 4,096   global_batch 256   (train_step)
@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -75,6 +77,34 @@ def cell_supported(cfg: ModelConfig, shape: str) -> bool:
     return True
 
 
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """``meta``-tensor stand-ins for every model input of this cell (the
+    port's ``jax.ShapeDtypeStruct``): shapes and dtypes, no allocation."""
+    from repro_torch.models.transformer import cache_specs
+
+    sh = SHAPES[shape]
+    nf = cfg.n_frontend_embeds
+    t_text = sh.seq - nf
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if sh.kind in ("train", "prefill"):
+        specs = {"tokens": spec((sh.batch, t_text))}
+        if sh.kind == "train":
+            specs["labels"] = spec((sh.batch, t_text))
+        if nf:
+            specs["frontend_embeds"] = spec((sh.batch, nf, cfg.d_model), dt)
+        return specs
+
+    # decode: one token against a seq-length cache
+    return {
+        "token": spec((sh.batch, 1)),
+        "cache": cache_specs(cfg, sh.batch, sh.seq),
+    }
+
+
 __all__ = [
     "ARCH_NAMES",
     "SHAPES",
@@ -83,4 +113,5 @@ __all__ = [
     "cell_supported",
     "get",
     "get_smoke",
+    "input_specs",
 ]

@@ -14,6 +14,9 @@
 * :mod:`mapped_model` — the one executor over plan nodes.
 * :mod:`cost_model` — the pricing algebra (segments, pipeline,
   contention) and the analytic H100 model.
+* :mod:`hep_shard` — the paper's algorithm lifted to the sharding
+  scheme: greedy coordinate descent over ``ShardScheme`` knobs, each
+  trial a measured step on the card.
 """
 
 from repro_torch.core.parallel_config import (
@@ -40,6 +43,7 @@ from repro_torch.core.profiler import (
 )
 from repro_torch.core.plan import build_plan, fuse_configuration, fuse_mapping
 from repro_torch.core.mapped_model import build_mapped_model, build_segment_fns
+from repro_torch.core.hep_shard import ShardTrial, search
 
 __all__ = [
     "ASPECT_CONFIGS",
@@ -47,6 +51,7 @@ __all__ = [
     "EfficientConfiguration",
     "ProfileTable",
     "Segment",
+    "ShardTrial",
     "aspects_of",
     "autotune_bnn_model",
     "best_uniform",
@@ -61,6 +66,7 @@ __all__ = [
     "price_mapping",
     "profile_bnn_model",
     "profile_segment_variants",
+    "search",
     "segments_of",
     "uniform_total",
 ]

@@ -18,7 +18,8 @@
 
 Each wrapper keeps a plain integer count of its launches
 (``xnor_gemm_cuda.launches``, ``segment_cuda.launches``,
-``flash_attention_cuda.launches``).
+``flash_attention_cuda.launches``; of the last, the launches that also
+write the log-sum-exp in ``flash_attention_cuda.lse_launches``).
 """
 
 from repro_torch.kernels.registry import (
@@ -45,6 +46,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    flash_attention_cuda.lse_launches = 0
 
 
 __all__ = [

@@ -133,7 +133,7 @@ def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.segment_fused_launch.restype = i
     elif stem == "flash_attention":
         lib.flash_attention_launch.argtypes = (
-            [p] * 4 + [i] * 7 + [ctypes.c_longlong] * 12
+            [p] * 5 + [i] * 7 + [ctypes.c_longlong] * 12
             + [ctypes.c_float, i, i, p])
         lib.flash_attention_launch.restype = i
     err = getattr(lib, f"{stem}_error_string")

@@ -21,6 +21,13 @@
 // no key at all (i + kv_offset < 0) gets a zero row.  Ragged Sq and Sk
 // tails are loaded as zeros and masked here, so no caller pads.
 //
+// On request (kLse, a second instantiation of each kernel; a launch
+// that does not ask runs the code it ran before) each row's natural-log
+// log-sum-exp of its scaled scores, m + log(l), is written to a dense
+// f32 (B, H, Sq) array: -inf for a row that saw no key.  The
+// context-parallel attention launches the kernel once per KV part and
+// merges the parts' outputs by these values.
+//
 // What bounds it on an H100: operations.  At the qwen2-0.5B prefill
 // shape (B 4, H 14, S 2048, D 64, causal) the two products are 30 GFLOP
 // over 34 MB of q, k, v and o, about 900 FLOP per byte, far above the
@@ -116,12 +123,13 @@ __device__ __forceinline__ void stage(float* __restrict__ dst,
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __device__ __forceinline__ void attention(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int group, int Sq,
-    int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-    int causal, int kv_offset) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int group, int Sq, int Sk, Strides qs,
+    Strides ks, Strides vs, Strides os, float scale, int causal,
+    int kv_offset) {
   constexpr int kLd = D + kPad;
   // output columns per read: the widest vector whose 16 lanes tile D
   // (112 = 16 x 7 takes single floats, in 7 groups)
@@ -271,12 +279,18 @@ __device__ __forceinline__ void attention(
     }
   }
 
-  // o = acc / l; a row that saw no key is 0
+  // o = acc / l; a row that saw no key is 0 (and its lse -inf); every
+  // lane of a row holds the row's m and l
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty + kGrid * i;
     if (qi >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if constexpr (kLse) {
+      if (tx == 0)
+        lse[((long long)b * gridDim.y + h) * Sq + qi] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
+    }
     float* orow = o_bh + (long long)qi * os.s;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
@@ -384,12 +398,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __device__ __forceinline__ void attention(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, int group, int Sq,
-    int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-    int causal, int kv_offset) {
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, int group, int Sq, int Sk, Strides qs,
+    Strides ks, Strides vs, Strides os, float scale, int causal,
+    int kv_offset) {
   constexpr int kLd = D + kPad;
   // Each 16-wide head-dim chunk is one ldmatrix.x4 of Q or K and each
   // pair of 8-wide O tiles one ldmatrix.x4.trans of V, so D need only be
@@ -575,6 +590,13 @@ __device__ __forceinline__ void attention(
     const int qi = row0 + 8 * i;
     if (qi >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if constexpr (kLse) {
+      // m is in units of log2: lse = m ln 2 + ln l
+      if (tq == 0)
+        lse[((long long)b * gridDim.y + h) * Sq + qi] =
+            l[i] > 0.f ? m[i] * 0.6931471805599453f + logf(l[i])
+                       : -INFINITY;
+    }
     bf16* orow = o_bh + (long long)qi * os.s + 2 * tq;
 #pragma unroll
     for (int dn = 0; dn < kND; ++dn)
@@ -598,24 +620,24 @@ constexpr int smem_of() {
                                        : tc::smem_bytes<D>();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(threads_of<T>())
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       int group, int Sq, int Sk, Strides qs, Strides ks,
-                       Strides vs, Strides os, float scale, int causal,
-                       int kv_offset) {
+                       float* __restrict__ lse, int group, int Sq, int Sk,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       float scale, int causal, int kv_offset) {
   if constexpr (std::is_same<T, float>::value)
-    f32::attention<D>(q, k, v, o, group, Sq, Sk, qs, ks, vs, os, scale,
-                      causal, kv_offset);
+    f32::attention<D, kLse>(q, k, v, o, lse, group, Sq, Sk, qs, ks, vs, os,
+                            scale, causal, kv_offset);
   else
-    tc::attention<D>(q, k, v, o, group, Sq, Sk, qs, ks, vs, os, scale,
-                     causal, kv_offset);
+    tc::attention<D, kLse>(q, k, v, o, lse, group, Sq, Sk, qs, ks, vs, os,
+                           scale, causal, kv_offset);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int group, int Sq, int Sk, Strides qs, Strides ks,
+template <typename T, int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int group, int Sq, int Sk, Strides qs, Strides ks,
            Strides vs, Strides os, float scale, int causal, int kv_offset,
            cudaStream_t stream) {
   constexpr int bytes = smem_of<T, D>();
@@ -624,37 +646,50 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
+        flash_attention_kernel<T, D, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, D><<<grid, threads_of<T>(), bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), group, Sq, Sk, qs, ks,
-      vs, os, scale, causal, kv_offset);
+  flash_attention_kernel<T, D, kLse>
+      <<<grid, threads_of<T>(), bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), lse, group, Sq, Sk,
+          qs, ks, vs, os, scale, causal, kv_offset);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_lse(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int group, int Sq, int Sk,
+               Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               int causal, int kv_offset, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch<T, D, true>(q, k, v, o, lse, B, H, group, Sq, Sk, qs, ks,
+                              vs, os, scale, causal, kv_offset, stream);
+  return launch<T, D, false>(q, k, v, o, lse, B, H, group, Sq, Sk, qs, ks,
+                             vs, os, scale, causal, kv_offset, stream);
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int group, int Sq, int Sk, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale, int causal, int kv_offset,
-             cudaStream_t stream) {
+             float* lse, int B, int H, int group, int Sq, int Sk, Strides qs,
+             Strides ks, Strides vs, Strides os, float scale, int causal,
+             int kv_offset, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, group, Sq, Sk, qs, ks, vs, os,
-                           scale, causal, kv_offset, stream);
+      return launch_lse<T, 32>(q, k, v, o, lse, B, H, group, Sq, Sk, qs, ks,
+                               vs, os, scale, causal, kv_offset, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, group, Sq, Sk, qs, ks, vs, os,
-                           scale, causal, kv_offset, stream);
+      return launch_lse<T, 64>(q, k, v, o, lse, B, H, group, Sq, Sk, qs, ks,
+                               vs, os, scale, causal, kv_offset, stream);
     case 112:
-      return launch<T, 112>(q, k, v, o, B, H, group, Sq, Sk, qs, ks, vs, os,
-                            scale, causal, kv_offset, stream);
+      return launch_lse<T, 112>(q, k, v, o, lse, B, H, group, Sq, Sk, qs, ks,
+                                vs, os, scale, causal, kv_offset, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, group, Sq, Sk, qs, ks, vs, os,
-                            scale, causal, kv_offset, stream);
+      return launch_lse<T, 128>(q, k, v, o, lse, B, H, group, Sq, Sk, qs, ks,
+                                vs, os, scale, causal, kv_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -671,11 +706,12 @@ bool aligned16(const void* p, const Strides& s) {
 
 // dtype 0: float32, 1: bfloat16.  Strides are in elements, (b, h, s) of
 // each tensor; the head-dim axis must be dense.  bf16 operands must be
-// 16-byte aligned (base pointers and all three strides).
+// 16-byte aligned (base pointers and all three strides).  lse: null, or a
+// dense f32 (B, H, Sq) array for each row's log-sum-exp.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int Hkv, int Sq, int Sk, int D, long long qsb, long long qsh,
-    long long qss, long long ksb, long long ksh, long long kss,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int B, int H, int Hkv, int Sq, int Sk, int D, long long qsb,
+    long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, float scale, int causal, int kv_offset,
     void* stream) {
@@ -686,14 +722,16 @@ extern "C" int flash_attention_launch(
       os{osb, osh, oss};
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, H, H / Hkv, Sq, Sk, qs, ks, vs,
-                           os, scale, causal, kv_offset, st);
+    return launch_d<float>(D, q, k, v, o, static_cast<float*>(lse), B, H,
+                           H / Hkv, Sq, Sk, qs, ks, vs, os, scale, causal,
+                           kv_offset, st);
   if (dtype == 1) {
     if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs) ||
         !aligned16(o, os))
       return (int)cudaErrorMisalignedAddress;
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, H / Hkv, Sq, Sk, qs,
-                                   ks, vs, os, scale, causal, kv_offset, st);
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, static_cast<float*>(lse),
+                                   B, H, H / Hkv, Sq, Sk, qs, ks, vs, os,
+                                   scale, causal, kv_offset, st);
   }
   return (int)cudaErrorInvalidValue;
 }

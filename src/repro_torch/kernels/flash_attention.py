@@ -16,6 +16,13 @@ would round f32 operands to TF32).  bf16 operands are staged by 16-byte
 ``cp.async`` copies, so their base pointers and (b, h, s) strides must
 be 16-byte aligned; the wrapper refuses others.
 
+With ``return_lse=True`` both return ``(out, lse)``: ``lse`` (B, H, Sq)
+float32, each row's natural-log log-sum-exp of its scaled visible
+scores, ``-inf`` for a row that saw no key.  The kernel writes it from
+a second instantiation, so a launch that does not ask runs the same code
+as before; ``models.modules.chunked_attention_kv_parallel`` launches it
+once per KV part and merges the parts by it.
+
 On a CPU tensor the wrapper computes the plain version
 (:func:`flash_attention_plain`); on a CUDA tensor it launches the kernel
 or raises.  Ragged Sq and Sk are masked inside the kernel, so neither
@@ -34,10 +41,15 @@ query of a tile are skipped; for a query that sees at least one key this
 is the Pallas kernel's arithmetic (its finite -1e30 mask underflows to
 the same 0).  A query that sees no key at all (``i + kv_offset < 0``)
 gets a zero row here; the Pallas kernel returns the mean of ``v`` there
-and ``attention_ref`` NaN.  The LM path never asks (``kv_offset >= 0``).
+and ``attention_ref`` NaN.  A single launch on the LM path never asks
+(``kv_offset >= 0``); the context-parallel attention's KV parts do
+(their offsets are negative), and there the row's ``lse`` of ``-inf``
+gives it no weight in the merge.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -90,12 +102,14 @@ def flash_attention_plain(
     kv_offset: int | None = None,
     q_blk: int = Q_TILE,
     k_blk: int = K_TILE,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The kernel's function in plain PyTorch, block by block: running
     max, sum and accumulator in f32 over key blocks of ``k_blk``, for
     each query block of ``q_blk``.  Same shapes, masking and output type
     as :func:`flash_attention_cuda`; ``kv_offset`` defaults to
-    ``Sk - Sq``."""
+    ``Sk - Sq``.  With ``return_lse``, ``(out, lse)``: ``m + log(l)`` of
+    each row, ``-inf`` where ``l`` is 0."""
     check_operands(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -108,6 +122,7 @@ def flash_attention_plain(
     kf, vf = k.float(), v.float()
     out = torch.empty((B, Hkv, g, Sq, D), dtype=torch.float32,
                       device=q.device)
+    lse = torch.empty((B, Hkv, g, Sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, Sq, q_blk):
         qb = qg[:, :, :, q0:q0 + q_blk]
         nq = qb.shape[3]
@@ -136,7 +151,11 @@ def flash_attention_plain(
             m = m_new
         out[:, :, :, q0:q0 + nq] = torch.where(
             l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
-    return out.reshape(B, H, Sq, D).to(q.dtype)
+        lse[:, :, :, q0:q0 + nq] = torch.where(
+            l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+            -math.inf)[..., 0]
+    out = out.reshape(B, H, Sq, D).to(q.dtype)
+    return (out, lse.reshape(B, H, Sq)) if return_lse else out
 
 
 def flash_attention_cuda(
@@ -147,13 +166,16 @@ def flash_attention_cuda(
     causal: bool = True,
     scale: float | None = None,
     kv_offset: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Flash attention, q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in
-    ``q.dtype``.  ``kv_offset`` defaults to ``Sk - Sq``.  Operands may be
-    strided views (for example (B,S,H,D) tensors transposed to
-    (B,H,S,D)) as long as the head-dim axis is dense (and, for bf16,
-    16-byte aligned: :func:`check_aligned`); the output has the layout
-    of ``q``."""
+    ``q.dtype``.  ``kv_offset`` defaults to ``Sk - Sq`` and may be
+    negative.  Operands may be strided views (for example (B,S,H,D)
+    tensors transposed to (B,H,S,D)) as long as the head-dim axis is
+    dense (and, for bf16, 16-byte aligned: :func:`check_aligned`); the
+    output has the layout of ``q``.  With ``return_lse``, ``(out,
+    lse)``, ``lse`` a dense (B,H,Sq) float32 tensor; such launches are
+    also counted in ``flash_attention_cuda.lse_launches``."""
     check_operands(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -161,7 +183,7 @@ def flash_attention_cuda(
     off = Sk - Sq if kv_offset is None else int(kv_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     kv_offset=off)
+                                     kv_offset=off, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: unsupported device "
                          f"{q.device}")
@@ -180,23 +202,31 @@ def flash_attention_cuda(
         raise ValueError(f"B {B} or H {H} exceeds the grid's 65535")
     # the output in q's layout: (B,S,H,D) storage stays (B,S,H,D)
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if o.numel() == 0 or Sk == 0:
-        return o.zero_()
+        o.zero_()
+        return (o, lse.fill_(-math.inf)) if return_lse else o
     lib = build.load_library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D, *strides,
-            scale, int(bool(causal)), off, stream,
+            None if lse is None else lse.data_ptr(), _DTYPES[q.dtype],
+            B, H, Hkv, Sq, Sk, D, *strides, scale, int(bool(causal)), off,
+            stream,
         )
     build.check(lib, "flash_attention", rc)
     flash_attention_cuda.launches += 1
+    if return_lse:
+        flash_attention_cuda.lse_launches += 1
+        return o, lse
     return o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.lse_launches = 0
 
 
 def attention_rows(

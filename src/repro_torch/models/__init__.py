@@ -31,9 +31,11 @@ from repro_torch.models.steps import (
 )
 from repro_torch.models.transformer import (
     Cache,
+    cache_specs,
     forward,
     init_cache,
     init_params,
+    param_specs,
     params_from_jax,
     params_to_numpy,
 )
@@ -45,6 +47,7 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
+    "cache_specs",
     "decode_cache",
     "forward",
     "greedy_decode",
@@ -54,6 +57,7 @@ __all__ = [
     "make_prefill_step",
     "make_serve_step",
     "make_train_step",
+    "param_specs",
     "params_from_jax",
     "params_to_numpy",
 ]

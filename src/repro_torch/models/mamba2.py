@@ -19,16 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import rms_norm
-
-
-# One card: no mesh, so the decode-cache layout pins
-# (parallel/constrain.py, not ported) are identities here.
-def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
-    return x
-
-
-def constrain_ssd(x: torch.Tensor) -> torch.Tensor:
-    return x
+from repro_torch.parallel.constrain import constrain, constrain_ssd
 
 
 def _repeat_groups(t: torch.Tensor, heads: int) -> torch.Tensor:

@@ -18,8 +18,9 @@ is the reference's:
 
 The JAX package ``vmap``s steps 2-3 and 5 over the groups; here the
 group axis is written out.  Its sharding constraints on the buffers
-are identities on one card.  Shared experts are fused into one wider
-gated MLP by the caller (``transformer.attn_block_apply``).
+(``parallel.constrain``) leave plain tensors as they are.  Shared
+experts are fused into one wider gated MLP by the caller
+(``transformer.attn_block_apply``).
 """
 
 from __future__ import annotations
@@ -30,12 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-
-
-# One card: no mesh, so the expert-parallel boundary
-# (parallel/constrain.py, not ported) is an identity here.
-def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
-    return x
+from repro_torch.parallel.constrain import constrain
 
 
 @contextlib.contextmanager

@@ -26,6 +26,12 @@ from repro_torch.models import modules as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import mamba_block
 from repro_torch.models.moe import moe_ffn
+from repro_torch.parallel.constrain import (
+    attn_kv_parallel_enabled,
+    constrain_kv,
+    pin_batch,
+    sp_residual_enabled,
+)
 
 # {'k','v': (L,B,Smax,Hkv,hd), 'len': int}; ssm: {'conv_x','conv_bc':
 # (L,B,K,C), 'ssd': (L,B,H,P,N) f32, 'len'}; hybrid: both, k/v stacked
@@ -37,14 +43,13 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-# One card: no mesh, so the JAX package's sharding pins
-# (parallel/constrain.py, not ported) are identities here.
 def _pin_residual(x: torch.Tensor) -> torch.Tensor:
-    return x
-
-
-def constrain_kv(x: torch.Tensor) -> torch.Tensor:
-    return x
+    """Pin the residual stream to (batch@data-axes, seq, d replicated);
+    under sequence parallelism the seq dim shards over 'model'.  An
+    identity without a mesh and on plain tensors
+    (``parallel.constrain``)."""
+    seq_ax = "model" if sp_residual_enabled() else None
+    return pin_batch(x, seq_ax, None)
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +153,15 @@ def _shape_tree(cfg: ModelConfig) -> dict:
         blocks["mlp"] = _mlp_shapes(cfg, lp, cfg.d_ff)
     tree["blocks"] = blocks
     return tree
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The params' shapes and dtype as ``meta`` tensors (the port's
+    ``jax.ShapeDtypeStruct``): nothing is allocated, grok-1's 314B
+    included."""
+    dt = _dtype(cfg)
+    return _map_tree(lambda _, sh: torch.empty(sh, dtype=dt, device="meta"),
+                     _shape_tree(cfg))
 
 
 def _map_tree(fn: Callable, tree: dict, path: tuple = ()) -> dict:
@@ -289,17 +303,26 @@ def attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
               attention: Optional[Callable] = None):
     """Train / prefill attention. Returns (out, (k, v)).
 
-    ``attention`` defaults to ``modules.chunked_attention``, which
-    launches the flash kernel on CUDA tensors; ``chip_smoke.py`` passes
+    Under ``scheme_context`` of a scheme with ``attn_kv_parallel`` the
+    attention is ``modules.chunked_attention_kv_parallel`` (kernel 3 once
+    per KV part on CUDA tensors), as in the JAX package.  Otherwise
+    ``attention``, which defaults to ``modules.chunked_attention`` (the
+    flash kernel on CUDA tensors); ``chip_smoke.py`` passes
     ``modules.chunked_attention_plain`` to hold the kernel path against
-    the plain one on the card.  (The JAX package's context-parallel
-    variant exists only under a mesh, which one card has not.)"""
+    the plain one on the card.  The kv returned for the cache are
+    ``constrain_kv``'d copies."""
     q, k, v = _proj_qkv(cfg, p, x, positions)
-    o = (attention or M.chunked_attention)(
-        q, k, v, causal=True,
-        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-        remat_chunks=cfg.remat,
-    )
+    if attn_kv_parallel_enabled():
+        o = M.chunked_attention_kv_parallel(
+            q, k, v, causal=True,
+            q_chunk=cfg.attn_q_chunk, remat_chunks=cfg.remat,
+        )
+    else:
+        o = (attention or M.chunked_attention)(
+            q, k, v, causal=True,
+            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+            remat_chunks=cfg.remat,
+        )
     B, S = x.shape[:2]
     out = o.reshape(B, S, -1) @ p["wo"]
     return out, (constrain_kv(k), constrain_kv(v))
@@ -591,6 +614,15 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
                     dt)
         out["v"] = out["k"]
     return out
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
+    """The decode cache's shapes and dtypes as ``meta`` tensors, ``len``
+    a 0-d int32 one; allocates nothing."""
+    c: dict = {k: torch.empty(s, dtype=d, device="meta")
+               for k, (s, d) in _cache_shapes(cfg, batch, max_len).items()}
+    c["len"] = torch.empty((), dtype=torch.int32, device="meta")
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

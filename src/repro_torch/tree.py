@@ -27,7 +27,7 @@ import torch
 
 __all__ = [
     "TreeDef", "flatten", "unflatten", "leaves", "paths", "tree_map",
-    "to_numpy", "from_numpy",
+    "tree_map_with_path", "to_numpy", "from_numpy",
 ]
 
 
@@ -155,6 +155,18 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
             raise ValueError(f"tree structures differ: {tdef} vs {tr}")
         others.append(fr)
     return unflatten(tdef, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """`fn(path, leaf)` over the leaves of `tree`, ``path`` the tuple of
+    the leaf's path parts (``("blocks", "attn", "wq")``; the parts that
+    :func:`paths` joins with ``/``), as
+    ``jax.tree_util.tree_map_with_path`` passes its key path."""
+    out: list = []
+    out_paths: list = []
+    skeleton = _flatten(tree, (), out, out_paths)
+    tdef = TreeDef(skeleton, len(out))
+    return unflatten(tdef, [fn(p, x) for p, x in zip(out_paths, out)])
 
 
 def to_numpy(x) -> np.ndarray:

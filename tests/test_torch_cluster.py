@@ -322,8 +322,15 @@ def test_pool_guards_and_replication_hot_swaps():
 
 
 def test_remesh_state_names_the_open_item():
-    with pytest.raises(NotImplementedError, match="item 12.4"):
-        T_CL.remesh_state(None, {}, None)
+    """The cluster's ``remesh_state`` is the runtime's (queue 1 item
+    12.4, ported); an empty tree plans and places nothing."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.runtime.elastic import remesh_state
+
+    assert T_CL.remesh_state is remesh_state
+    cfg = configs.get_smoke("olmo_1b")
+    assert T_CL.remesh_state(cfg, {}, abstract_mesh((1, 1))) == {}
 
 
 def test_latency_quantile_equal_to_reference():

@@ -813,3 +813,102 @@ def test_lm_train_step_on_the_card_matches_the_cpu_step(dev):
         firm = (clip * g).abs() >= 1e-6
         assert float(d[firm].max()) <= 0.05 * lr
         assert float(d.max()) <= 2 * lr
+
+
+# kernel 3's log-sum-exp output against the plain version's: (b, h, hkv,
+# sq, sk, d, causal, kv_offset).  A negative offset is a KV part's of the
+# context-parallel attention: its first queries see no key (lse -inf,
+# output 0).  Outputs at the kernel's tolerances (f32 1e-4, bf16 2e-2);
+# the lse, f32 statistics either way, at 1e-4 (f32) and 1e-3 (bf16
+# inputs: the tensor-core path's exp2 is the hardware's approximate one)
+LSE_CASES = {
+    **{f"d{d}-part-{off}": (2, 14, 2, 256, 128, d, True, off)
+       for d in (64, 112, 128) for off in (0, -64, -128, -200)},
+    "d64-aligned": (2, 14, 2, 200, 200, 64, True, None),
+    "d128-full": (1, 8, 1, 77, 130, 128, False, None),
+    "d112-ragged-part": (1, 32, 32, 100, 64, 112, True, -70),
+    "d64-no-row-sees": (1, 4, 2, 64, 64, 64, True, -64),
+}
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(LSE_CASES))
+def test_flash_attention_lse_matches_plain(dev, name, dt):
+    b, h, hkv, sq, sk, d, causal, off = LSE_CASES[name]
+    dtype = getattr(torch, dt)
+    rng = np.random.default_rng(300 + sorted(LSE_CASES).index(name))
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, dtype)
+        for shape in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # the models' views
+    before = (flash_attention_cuda.launches,
+              flash_attention_cuda.lse_launches)
+    got, lse = flash_attention_cuda(q, k, v, causal=causal, kv_offset=off,
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_cuda.lse_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    assert lse.is_contiguous() and got.stride() == q.stride()
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           kv_offset=off, return_lse=True)
+    dead = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), dead)
+    assert bool((lse[dead] < 0).all())
+    assert float(got[dead].float().abs().sum()) == 0
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=lse_tol,
+                               rtol=lse_tol)
+    # the same launch without the lse: the same output bits
+    alone = flash_attention_cuda(q, k, v, causal=causal, kv_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.lse_launches == before[1] + 1
+    assert torch.equal(alone, got)
+
+
+# (B, S, H, Hkv, D, n_kv_parts, dtype): the kernel once per KV part,
+# merged by log-sum-exp, against the plain body on the same card
+KV_PARALLEL_CASES = {
+    "qwen2-like-f32": (2, 256, 14, 2, 64, 16, "float32"),
+    "qwen2-like-bf16": (2, 512, 14, 2, 64, 16, "bfloat16"),
+    "d128-parts4-bf16": (1, 384, 8, 8, 128, 4, "bfloat16"),
+    "d112-parts16-f32": (1, 256, 4, 4, 112, 16, "float32"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KV_PARALLEL_CASES))
+def test_kv_parallel_attention_on_the_card_matches_its_plain_body(dev, name):
+    B, S, H, Hkv, D, parts, dt = KV_PARALLEL_CASES[name]
+    dtype = getattr(torch, dt)
+    rng = np.random.default_rng(400 + sorted(KV_PARALLEL_CASES).index(name))
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, dtype)
+        for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                      (B, S, H, D)))
+    before = flash_attention_cuda.lse_launches
+    got = T_MOD.chunked_attention_kv_parallel(
+        q, k, v, causal=True, q_chunk=128, n_kv_parts=parts)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.lse_launches == before + parts
+    assert got.dtype == dtype and got.shape == q.shape
+    want = T_MOD.chunked_attention_kv_parallel_plain(
+        q, k, v, causal=True, q_chunk=128, n_kv_parts=parts)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    def grads(fn):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv)
+        return torch.autograd.grad((out.float() * w.float()).sum(),
+                                   (qq, kk, vv))
+
+    got_g = grads(lambda a, b, c: T_MOD.chunked_attention_kv_parallel(
+        a, b, c, causal=True, q_chunk=128, n_kv_parts=parts))
+    want_g = grads(lambda a, b, c: T_MOD.chunked_attention_kv_parallel_plain(
+        a, b, c, causal=True, q_chunk=128, n_kv_parts=parts))
+    for label, a, c in zip("qkv", got_g, want_g):
+        assert a.dtype == dtype and _rel(a, c.cpu()) <= tol, (
+            label, _rel(a, c.cpu()))
