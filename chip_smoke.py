@@ -224,6 +224,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    the batch's copy), the card's memory as ``hbm_bytes``; the f32 loss
    and gradient through the kernel per part and the chunk-recompute
    backward against plain autograd (1e-4).
+16. the dry run (``dryrun_phase``): (a) qwen2-0.5B at full width, bf16,
+   B 4 x S 2,048, as an AdamW train step and as a prefill, each traced
+   by ``launch.dryrun.dry_run`` on a fake one-rank (1, 1) DeviceMesh
+   with fake CUDA tensors (kernel 3 is its op's fake implementation;
+   nothing may launch), then run for real under ``FlopCounterMode``
+   after ``torch.cuda.reset_peak_memory_stats``: the per-device FLOPs of
+   both must be equal, the predicted peak within 15 % of the measured
+   one (``max_memory_allocated`` less what was allocated before the
+   step's arguments), kernel 3 must launch once per layer of the
+   forward, and the predicted ``max(compute, memory) + collective``
+   (H100 datasheet rates) is printed beside the step's median of two by
+   CUDA events; (b) ``launch.hillclimb.run_cell`` on the 16 x 16 fake
+   mesh with fake CUDA tensors for the ``DRYRUN_CELLS``, one line per
+   variant (derived numbers, datasheet-priced), and the phase's wall.
 
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
@@ -240,9 +254,10 @@ explore job (``xnor_gemm_cuda``), phase 11's autotune sweep and
 serving (``xnor_gemm_cuda``), phase 12 (``xnor_gemm_cuda`` and
 ``segment_cuda``), phase 13 (``xnor_gemm_cuda`` and
 ``segment_cuda``), phase 14's qwen2 training
-(``flash_attention_cuda``, once per layer of each step) and phase 15's
+(``flash_attention_cuda``, once per layer of each step), phase 15's
 context-parallel prefill (``flash_attention_cuda`` with the
-log-sum-exp, once per layer and KV part).  The last
+log-sum-exp, once per layer and KV part) and phase 16's real train step
+and prefill (``flash_attention_cuda``, once per layer).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -418,6 +433,13 @@ NEG_BIAS = -1e30
 # bf16 inputs at 1e-3 (the tensor-core path's approximate exp2)
 LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 
+
+# the dry run (phase 16): the 1 x 1 step's predicted peak against the
+# measured one, the timed steps after a warm one, and the hillclimb
+# cells run on the 16 x 16 fake mesh
+DRYRUN_PEAK_REL = 0.15
+DRYRUN_TIMED = 2
+DRYRUN_CELLS = ("deepseek", "qwen-prefill")
 
 # adaptive serving (phase 9): requests per burst, calibration stops after
 # this many steps without a new journal entry (at most CALIBRATE_MAX
@@ -1421,7 +1443,9 @@ def flash_timing(dev, gen, shape) -> dict:
     and o once over the memory rate, whichever is longer."""
     import torch
     from repro_torch.kernels import flash_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_plain,
+    )
 
     B, H, Hkv, S, D = shape
 
@@ -1433,7 +1457,16 @@ def flash_timing(dev, gen, shape) -> dict:
     v = randn(B, S, Hkv, D).transpose(1, 2)
     ms, how = kernel_ms(lambda: flash_attention_cuda(q, k, v),
                         "flash_attention_kernel", 20)
-    call = time_ms(lambda: flash_attention_cuda(q, k, v), 20)
+    # per call through the custom op and launched directly, alternately
+    # (op, direct, direct, op): what the op wrapper costs a launch
+    off = q.shape[2] - k.shape[2]
+    calls = {"op": [], "direct": []}
+    for which in ("op", "direct", "direct", "op"):
+        fn = ((lambda: flash_attention_cuda(q, k, v)) if which == "op"
+              else (lambda: _launch(q, k, v, True, D ** -0.5, off, False)))
+        calls[which].append(time_ms(fn, 20))
+    call = sum(calls["op"]) / 2
+    direct = sum(calls["direct"]) / 2
     plain = time_ms(lambda: flash_attention_plain(q, k, v), 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     try:
@@ -1449,7 +1482,8 @@ def flash_timing(dev, gen, shape) -> dict:
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q,k,v,o
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return {"ms": ms, "how": how, "call_ms": call, "plain_ms": plain,
+    return {"ms": ms, "how": how, "call_ms": call, "direct_call_ms": direct,
+            "plain_ms": plain,
             "library_ms": lib, "library_how": lib_how, "flops": flops,
             "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -2552,6 +2586,150 @@ def shard_phase(dev, flash_ms: float) -> dict:
     return res
 
 
+def dryrun_phase(dev) -> dict:
+    """Phase 16: the XLA-free dry run.  (a) qwen2-0.5B's bf16 AdamW train
+    step and prefill at B 4 x S 2,048, each dry-run on a fake (1, 1)
+    mesh and then run for real: FLOPs equal, peak within
+    ``DRYRUN_PEAK_REL``, kernel 3 once per layer; (b) the hillclimb's
+    ``DRYRUN_CELLS`` on the 16 x 16 fake mesh.  Returns {"steps": {kind:
+    numbers}, "launches": {kind: kernel 3 launches}, "seconds": wall}."""
+    import gc
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs as lm_configs
+    from repro_torch.kernels import (
+        flash_attention_cuda, launch_counts, reset_launch_counts,
+    )
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import fake_process_group, make_debug_mesh
+    from repro_torch.models import steps as lm_steps
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    cfg = lm_configs.get(LM_ARCH)
+    gib = 2**30
+    out = {"steps": {}, "launches": {}}
+    for kind in ("train", "prefill"):
+        cell = lm_configs.ShapeCell(f"chip {kind}", kind, LM_PROMPT,
+                                    LM_BATCH)
+        with fake_process_group(1):
+            mesh = make_debug_mesh((1, 1), ("data", "model"),
+                                   device_type="cuda")
+            before = flash_attention_cuda.launches
+            pred = dryrun.dry_run(cfg, cell, mesh, device=dev)
+            if flash_attention_cuda.launches != before:
+                raise AssertionError("the dry run launched kernel 3")
+        flops_pred = pred["per_device"]["hlo_flops"]
+        peak_pred = pred["memory"]["peak_bytes_per_device"]
+        compute_s = flops_pred / dryrun.PEAK_BF16
+        memory_s = pred["per_device"]["hlo_bytes"] / dryrun.HBM_BW
+        coll_s = pred["collectives"]["per_device_bytes"] / dryrun.LINK_BW
+        step_pred_ms = (max(compute_s, memory_s) + coll_s) * 1e3
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = lm.init_params(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                               generator=gen, device=dev,
+                               dtype=torch.int32)
+        if kind == "train":
+            opt = adamw(3e-4)
+            state = opt.init(params)
+            step = lm_steps.make_train_step(cfg, opt,
+                                            grad_compression="bf16")
+            batch = {"tokens": tokens, "labels": tokens}
+
+            def run():
+                return step(params, state, batch)
+        else:
+            prefill = lm_steps.make_prefill_step(cfg)
+
+            def run():
+                return prefill(params, tokens)
+
+        run()                                      # warm
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        with FlopCounterMode(display=False) as fc:
+            res = run()
+            torch.cuda.synchronize()
+        launched = launch_counts()["flash_attention_cuda"]
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del res
+        times = []
+        for _ in range(DRYRUN_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            del res
+        step_ms = statistics.median(times)
+        flops_card = fc.get_total_flops()
+        ratio = peak_pred / peak
+        log(f"[dryrun] {cfg.name} bf16 {kind} B={LM_BATCH} S={LM_PROMPT} "
+            f"on a fake 1 x 1 mesh (trace {pred['trace_s']} s) vs the "
+            f"card: per-device FLOPs dry run {flops_pred} card "
+            f"(FlopCounterMode) {flops_card}; peak predicted "
+            f"{peak_pred / gib:.3f} GiB, measured {peak / gib:.3f} GiB "
+            f"(max_memory_allocated less {base / gib:.3f} GiB held "
+            f"before), ratio {ratio:.4f}; step predicted "
+            f"{step_pred_ms:.2f} ms (compute {compute_s * 1e3:.2f}, "
+            f"memory {memory_s * 1e3:.2f}, collective "
+            f"{coll_s * 1e3:.2f} ms), measured {step_ms:.2f} ms (median "
+            f"of {[round(t, 2) for t in times]}); kernel 3 launches "
+            f"{launched}; HBM bytes predicted "
+            f"{pred['per_device']['hlo_bytes'] / 1e9:.2f} GB")
+        if flops_pred != flops_card:
+            raise AssertionError(f"{kind}: dry-run FLOPs {flops_pred} != "
+                                 f"FlopCounterMode's {flops_card}")
+        if abs(ratio - 1.0) > DRYRUN_PEAK_REL:
+            raise AssertionError(f"{kind}: predicted peak {peak_pred} vs "
+                                 f"measured {peak}, ratio {ratio}")
+        if launched != cfg.n_layers:
+            raise AssertionError(f"{kind}: kernel 3 launched {launched} "
+                                 f"times, {cfg.n_layers} layers")
+        out["steps"][kind] = {
+            "flops": flops_pred, "peak_pred": peak_pred, "peak": peak,
+            "step_pred_ms": step_pred_ms, "step_ms": step_ms}
+        out["launches"][kind] = launched
+        del params, tokens, run
+        if kind == "train":
+            del state, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    outdir = Path(tempfile.mkdtemp(prefix="chip_smoke_hillclimb_"))
+    try:
+        for key in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            results = hillclimb.run_cell(key, outdir, device=dev)
+            bad = [r for r in results if "error" in r]
+            if bad:
+                raise AssertionError(f"hillclimb {key}: {bad}")
+            for r in results:
+                log(f"[hillclimb] {key} {r['variant']}: "
+                    f"{json.dumps({k: r[k] for k in ('compute_s', 'memory_s', 'collective_s', 'peak_gib', 'coll_by_kind_gib')})}")
+            log(f"[hillclimb] {key}: {len(results)} variants on the 16 x 16 "
+                f"fake mesh in {time.perf_counter() - t0:.1f} s "
+                f"(datasheet-priced, derived)")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase 16: {out['seconds']:.2f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2587,6 +2765,7 @@ def main() -> int:
         segment_cuda, xnor_gemm_cuda,
     )
     from repro_torch.kernels.xnor_popcount import mma_probe
+    from repro_torch.kernels.flash_attention import _launch as flash_launch
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models import modules as lm_modules
     from repro_torch.models import steps as lm_steps
@@ -2758,6 +2937,12 @@ def main() -> int:
         if out.dtype != dtype or out.shape != q.shape:
             raise AssertionError(f"flash_attention_cuda {label}: "
                                  f"{out.dtype} {tuple(out.shape)}")
+        # the custom op's body is the launch: the same bits as launching
+        # directly
+        direct, _ = flash_launch(q, k, v, causal, d ** -0.5, sk - sq, False)
+        if not torch.equal(out, direct):
+            raise AssertionError(f"flash_attention_cuda {label}: the op "
+                                 f"differs from the direct launch")
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
         tol = FLASH_TOL[dt]
@@ -2871,7 +3056,9 @@ def main() -> int:
         log(f"[time] flash_attention_cuda {arch} B={shape[0]} "
             f"H={shape[1]}/{shape[2]} S={shape[3]} D={shape[4]} bf16 causal: "
             f"device {r['ms']:.4f} ms ({r['how']}), per call "
-            f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"{r['call_ms']:.4f} ms through the custom op, "
+            f"{r['direct_call_ms']:.4f} ms launched directly, plain "
+            f"{r['plain_ms']:.3f} ms, "
             f"scaled_dot_product_attention {r['library_ms']:.4f} ms "
             f"({r['library_how']}), bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}: {r['flops'] / 1e9:.2f} GFLOP, "
@@ -3535,6 +3722,9 @@ def main() -> int:
     # -- 15. the sharding layer --------------------------------------------
     shard = shard_phase(dev, k3["ms"])
 
+    # -- 16. the dry run ---------------------------------------------------
+    dry = dryrun_phase(dev)
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -3560,7 +3750,11 @@ def main() -> int:
          "launches_by_path": {
              LM_ARCH: lm_counts["flash_attention_cuda"], **family_launches,
              f"{LM_ARCH} train ({lm_train['steps']} steps)":
-                 lm_train["train_launches"]},
+                 lm_train["train_launches"],
+             f"{LM_ARCH} dry-run check, train step":
+                 dry["launches"]["train"],
+             f"{LM_ARCH} dry-run check, prefill":
+                 dry["launches"]["prefill"]},
          "launches_per_train_step": {
              LM_ARCH: lm_train["train_launches"] / lm_train["steps"]},
          "ms_by_shape": {a: r["ms"] for a, r in flash_times.items()},

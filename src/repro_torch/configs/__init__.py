@@ -77,12 +77,14 @@ def cell_supported(cfg: ModelConfig, shape: str) -> bool:
     return True
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
+def input_specs(cfg: ModelConfig, shape) -> dict:
     """``meta``-tensor stand-ins for every model input of this cell (the
-    port's ``jax.ShapeDtypeStruct``): shapes and dtypes, no allocation."""
+    port's ``jax.ShapeDtypeStruct``): shapes and dtypes, no allocation.
+    `shape` is a name of :data:`SHAPES` or a :class:`ShapeCell` of its
+    own (``launch.dryrun`` traces steps at other sizes too)."""
     from repro_torch.models.transformer import cache_specs
 
-    sh = SHAPES[shape]
+    sh = shape if isinstance(shape, ShapeCell) else SHAPES[shape]
     nf = cfg.n_frontend_embeds
     t_text = sh.seq - nf
     dt = getattr(torch, cfg.dtype)

@@ -175,18 +175,38 @@ def flash_attention_cuda(
     dense (and, for bf16, 16-byte aligned: :func:`check_aligned`); the
     output has the layout of ``q``.  With ``return_lse``, ``(out,
     lse)``, ``lse`` a dense (B,H,Sq) float32 tensor; such launches are
-    also counted in ``flash_attention_cuda.lse_launches``."""
+    also counted in ``flash_attention_cuda.lse_launches``.
+
+    The launch goes through the custom ops ``repro_torch::flash_attention``
+    and ``repro_torch::flash_attention_lse`` (:func:`_flash_op`), so fake
+    tensors, DTensors and ``FlopCounterMode`` see one op per call."""
     check_operands(q, k, v)
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Sq, D = q.shape[2], q.shape[3]
     scale = float(scale if scale is not None else D ** -0.5)
-    off = Sk - Sq if kv_offset is None else int(kv_offset)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     kv_offset=off, return_lse=return_lse)
-    if q.device.type != "cuda":
+    off = k.shape[2] - Sq if kv_offset is None else int(kv_offset)
+    if q.device.type == "cuda":
+        check_cuda_operands(q, k, v)
+    elif q.device.type != "cpu":
         raise ValueError(f"flash_attention_cuda: unsupported device "
                          f"{q.device}")
+    if return_lse:
+        o, lse = torch.ops.repro_torch.flash_attention_lse(
+            q, k, v, bool(causal), scale, off, Q_TILE, K_TILE)
+        return o, lse
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal), scale, off, Q_TILE, K_TILE)
+
+
+flash_attention_cuda.launches = 0
+flash_attention_cuda.lse_launches = 0
+
+
+def check_cuda_operands(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+    """What the kernel takes, read from shapes, dtypes and strides alone
+    (so fake tensors and DTensors are checked too); the alignment of
+    bf16 pointers is checked at the launch."""
+    B, H, _, D = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention_cuda takes float32 or bfloat16 operands of "
@@ -196,17 +216,26 @@ def flash_attention_cuda(
                          f"{HEAD_DIMS}, got {D}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs a dense head-dim axis")
-    if q.dtype == torch.bfloat16:
-        check_aligned(q, k, v)
     if B > 65535 or H > 65535:
         raise ValueError(f"B {B} or H {H} exceeds the grid's 65535")
+
+
+def _launch(q, k, v, causal: bool, scale: float, off: int,
+            return_lse: bool):
+    """One launch of the kernel on real CUDA tensors: (out, lse or
+    None)."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    check_cuda_operands(q, k, v)
+    if q.dtype == torch.bfloat16:
+        check_aligned(q, k, v)
     # the output in q's layout: (B,S,H,D) storage stays (B,S,H,D)
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if o.numel() == 0 or Sk == 0:
         o.zero_()
-        return (o, lse.fill_(-math.inf)) if return_lse else o
+        return o, None if lse is None else lse.fill_(-math.inf)
     lib = build.load_library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -221,12 +250,128 @@ def flash_attention_cuda(
     flash_attention_cuda.launches += 1
     if return_lse:
         flash_attention_cuda.lse_launches += 1
-        return o, lse
-    return o
+    return o, lse
 
 
-flash_attention_cuda.launches = 0
-flash_attention_cuda.lse_launches = 0
+# ---------------------------------------------------------------------------
+# The kernel as custom ops: a body (the launch on CUDA tensors, the plain
+# version on CPU tensors), a fake implementation (shapes and dtypes), a
+# FLOP formula and a DTensor sharding rule
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float, kv_offset: int, q_blk: int,
+              k_blk: int) -> torch.Tensor:
+    """Kernel 3: one launch on CUDA tensors; on CPU tensors the plain
+    version over ``q_blk`` x ``k_blk`` blocks (the kernel ignores
+    them: its tiles are 64 x 64)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     kv_offset=kv_offset, q_blk=q_blk,
+                                     k_blk=k_blk)
+    return _launch(q, k, v, causal, scale, kv_offset, False)[0]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse",
+                         mutates_args=())
+def _flash_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float, kv_offset: int, q_blk: int,
+                  k_blk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 3 with its log-sum-exp output: ``(out, lse)``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     kv_offset=kv_offset, q_blk=q_blk,
+                                     k_blk=k_blk, return_lse=True)
+    return _launch(q, k, v, causal, scale, kv_offset, True)
+
+
+def _fake_out(q: torch.Tensor) -> torch.Tensor:
+    # the kernel writes q's layout, the plain version a dense tensor
+    if q.device.type == "cpu":
+        return q.new_empty(q.shape)
+    return torch.empty_like(q)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, scale, kv_offset, q_blk, k_blk):
+    return _fake_out(q)
+
+
+@_flash_lse_op.register_fake
+def _(q, k, v, causal, scale, kv_offset, q_blk, k_blk):
+    return _fake_out(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def visible_pairs(sq: int, sk: int, kv_offset: int, causal: bool) -> int:
+    """(query, key) pairs a launch computes: all ``sq * sk`` without
+    causal masking, else the keys ``j <= i + kv_offset`` of each query
+    ``i`` (a closed form of ``sum_i clip(i + kv_offset + 1, 0, sk)``)."""
+    if not causal:
+        return sq * sk
+    i0 = min(sq, max(0, -kv_offset))          # first query seeing a key
+    i1 = min(sq, max(i0, sk - kv_offset - 1))  # first seeing all of them
+    n = i1 - i0
+    ramp = n * (2 * (i0 + kv_offset + 1) + n - 1) // 2
+    return ramp + (sq - i1) * sk
+
+
+def flash_flops(q_shape, k_shape, causal: bool, kv_offset: int) -> int:
+    """The kernel's FLOPs: two products (q k^T and p v) of 2 * D each
+    per visible (query, key) pair and query head: ``4 B H D pairs``."""
+    B, H, Sq, D = q_shape
+    return 4 * B * H * D * visible_pairs(Sq, k_shape[2], kv_offset, causal)
+
+
+def _flop_formula(q_shape, k_shape, v_shape, causal, scale, kv_offset,
+                  q_blk, k_blk, *args, out_shape=None, **kwargs) -> int:
+    return flash_flops(q_shape, k_shape, causal, kv_offset)
+
+
+def _register_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    register_flop_formula([torch.ops.repro_torch.flash_attention,
+                           torch.ops.repro_torch.flash_attention_lse])(
+        _flop_formula)
+
+
+def _register_sharding() -> None:
+    """DTensor runs the kernel per local shard: batch over any mesh dim,
+    query and kv heads over 'model' where both counts divide its size
+    (a query head's kv head then lies on its own shard), else
+    replicated; DTensor redistributes operands placed otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def rule(q, k, v, causal, scale, kv_offset, q_blk, k_blk, *, n_out):
+        strategies = []
+        dims = [0]
+        names = q.mesh.mesh_dim_names or ()
+        if "model" in names:
+            m = q.mesh.size(names.index("model"))
+            if q.shape[1] % m == 0 and k.shape[1] % m == 0:
+                dims.append(1)
+        # the log-sum-exp (B,H,Sq) shards as the output (B,H,Sq,D) does
+        for placement in [Replicate()] + [Shard(d) for d in dims]:
+            strategies.append(
+                ([placement] * n_out, [placement] * 3 + [None] * 5))
+        return strategies
+
+    register_sharding(torch.ops.repro_torch.flash_attention.default)(
+        lambda *a, **kw: rule(*a, **kw, n_out=1))
+    register_sharding(torch.ops.repro_torch.flash_attention_lse.default)(
+        lambda *a, **kw: rule(*a, **kw, n_out=2))
+
+
+_register_formulas()
+try:
+    import torch.distributed.tensor  # noqa: F401  (absent without c10d)
+except ImportError:
+    pass
+else:
+    _register_sharding()
 
 
 def attention_rows(
@@ -284,9 +429,13 @@ class FlashAttentionFn(torch.autograd.Function):
                 q_chunk: int, kv_chunk: int, kernel: bool):
         q_blk = min(q_chunk, q.shape[2]) or 1
         k_blk = min(kv_chunk, k.shape[2]) or 1
-        if kernel and q.device.type != "cpu":
-            out = flash_attention_cuda(q, k, v, causal=causal, scale=scale,
-                                       kv_offset=kv_offset)
+        if kernel:
+            check_operands(q, k, v)
+            if q.device.type == "cuda":
+                check_cuda_operands(q, k, v)
+            out = torch.ops.repro_torch.flash_attention(
+                q, k, v, bool(causal), float(scale), int(kv_offset), q_blk,
+                k_blk)
         else:
             out = flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                         kv_offset=kv_offset, q_blk=q_blk,
@@ -299,25 +448,61 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
         causal, scale, off, q_blk = ctx.args
-        dq = torch.empty_like(q)
-        # float32 leaves: the recompute runs in float32, so its gradients
-        # stay float32 until the one rounding at the end
-        kf = k.detach().float().requires_grad_()
-        vf = v.detach().float().requires_grad_()
-        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-        for q0 in range(0, q.shape[2], q_blk):
-            rows = slice(q0, q0 + q_blk)
-            with torch.enable_grad():
-                qi = q[:, :, rows].detach().float().requires_grad_()
-                oi = attention_rows(qi, kf, vf, causal=causal, scale=scale,
-                                    kv_offset=off + q0)
-                # a chunk that sees no key leaves its inputs unused
-                gq, gk, gv = torch.autograd.grad(
-                    oi, (qi, kf, vf), grad_out[:, :, rows].float(),
-                    allow_unused=True)
-            dq[:, :, rows] = 0 if gq is None else gq
-            if gk is not None:
-                dk += gk
-                dv += gv
-        return (dq, dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None, None)
+        dq, dk, dv = _per_shard(_recompute_grads, q, k, v, grad_out,
+                                causal=causal, scale=scale, off=off,
+                                q_blk=q_blk)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _recompute_grads(q, k, v, grad_out, *, causal: bool, scale: float,
+                     off: int, q_blk: int):
+    """(dq, dk, dv) of attention by recomputing it one ``q_blk`` slice
+    of the queries at a time under autograd (float32)."""
+    dq = torch.empty_like(q)
+    # float32 leaves: the recompute runs in float32, so its gradients
+    # stay float32 until the one rounding at the end
+    kf = k.detach().float().requires_grad_()
+    vf = v.detach().float().requires_grad_()
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, q.shape[2], q_blk):
+        rows = slice(q0, q0 + q_blk)
+        with torch.enable_grad():
+            qi = q[:, :, rows].detach().float().requires_grad_()
+            oi = attention_rows(qi, kf, vf, causal=causal, scale=scale,
+                                kv_offset=off + q0)
+            # a chunk that sees no key leaves its inputs unused
+            gq, gk, gv = torch.autograd.grad(
+                oi, (qi, kf, vf), grad_out[:, :, rows].float(),
+                allow_unused=True)
+        dq[:, :, rows] = 0 if gq is None else gq
+        if gk is not None:
+            dk += gk
+            dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _per_shard(fn, q, k, *rest, **kw):
+    """``fn(q, k, *rest, **kw)`` on tensors laid out as kernel 3's
+    (B, H, S, D).  On DTensors it runs on the local shards under the
+    op's sharding rule (batch shards, head shards where H and Hkv divide
+    the mesh dim, everything else replicated) and returns DTensors of
+    those placements, as the op runs the forward; on plain tensors it is
+    ``fn`` itself."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, *rest, **kw)
+    mesh = q.device_mesh
+
+    def keep(i, p):
+        n = mesh.size(i)
+        return isinstance(p, Shard) and (
+            p.dim == 0 or (p.dim == 1 and q.shape[1] % n == 0
+                           and k.shape[1] % n == 0))
+
+    placements = tuple(p if keep(i, p) else Replicate()
+                       for i, p in enumerate(q.placements))
+    out = fn(*(t.redistribute(mesh, placements).to_local()
+               for t in (q, k, *rest)), **kw)
+    return tuple(DTensor.from_local(t, mesh, placements, run_check=False)
+                 for t in out)

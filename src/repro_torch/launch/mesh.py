@@ -5,7 +5,10 @@ no device and no process group.  A real mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of an
 initialised process group (one rank per device);
 :func:`abstract_mesh` gives the axis names and sizes alone, for planning
-at production size on one card.
+at production size on one card.  :func:`fake_process_group` gives a
+world of any size in one process whose collectives move nothing, so
+``make_production_mesh`` builds a real 256- or 512-rank DeviceMesh for
+``launch.dryrun`` to trace a sharded step on.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ __all__ = [
     "PRODUCTION_AXES",
     "PRODUCTION_SHAPES",
     "abstract_mesh",
+    "fake_process_group",
     "make_debug_mesh",
     "make_production_mesh",
     "single_process_group",
@@ -87,3 +91,26 @@ def single_process_group(backend: str):
             dist.destroy_process_group()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """A world of ``world_size`` ranks held by this one process as rank 0,
+    for the block: torch's ``FakeProcessGroup``, whose collectives
+    return at once and move nothing (registered as the ``fake`` backend
+    when it is not yet).  No store is contacted and no other process
+    starts.  Refuses to nest, as :func:`single_process_group` does; the
+    group is destroyed at the end."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    # importing it registers the "fake" backend and gives its store
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import rms_norm
-from repro_torch.parallel.constrain import constrain, constrain_ssd
+from repro_torch.parallel.constrain import constrain, constrain_ssd, split_dim
 
 
 def _repeat_groups(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -181,16 +181,16 @@ def mamba_block(
         bc = F.silu(causal_conv1d(bc_raw, p["conv_bc_w"], p["conv_bc_b"]))
         Bm, Cm = bc[..., :gn], bc[..., gn:]
         dt_sp = F.softplus(dt.float() + p["dt_bias"].float())
+        xh = split_dim(xi, 2, H, P)
         y, h_final = ssd_chunked(
-            xi.reshape(B, S, H, P),
+            xh,
             dt_sp,
             A,
-            Bm.reshape(B, S, G, N),
-            Cm.reshape(B, S, G, N),
+            split_dim(Bm, 2, G, N),
+            split_dim(Cm, 2, G, N),
             chunk=s.chunk,
         )
-        y = y + p["D"].to(y.dtype)[None, None, :, None] * xi.reshape(
-            B, S, H, P)
+        y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
         y = y.reshape(B, S, din)
         y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"])
         out = y @ p["out_proj"]
@@ -219,12 +219,13 @@ def mamba_block(
     bc_t = F.silu(bc_t)
     Bm, Cm = bc_t[..., :gn], bc_t[..., gn:]
     dt_t = F.softplus(dt[:, 0].float() + p["dt_bias"].float())
+    xh = split_dim(xi_t, 1, H, P)
     y, h_new = ssd_decode_step(
-        xi_t.reshape(B, H, P), dt_t, A,
-        Bm.reshape(B, G, N), Cm.reshape(B, G, N),
+        xh, dt_t, A,
+        split_dim(Bm, 1, G, N), split_dim(Cm, 1, G, N),
         cache["ssd"],
     )
-    y = y + p["D"].to(y.dtype)[None, :, None] * xi_t.reshape(B, H, P)
+    y = y + p["D"].to(y.dtype)[None, :, None] * xh
     y = y.reshape(B, 1, din)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"])
     out = y @ p["out_proj"]

@@ -16,7 +16,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
-from repro_torch.parallel.constrain import constrain
+from repro_torch.parallel.constrain import constrain, split_dim
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6):
@@ -188,7 +188,7 @@ def _kv_parallel_rows(q, k, v, *, causal: bool, n_kv_parts: int, q0: int,
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     kp = Sk // n_kv_parts
-    qg = q.float().reshape(B, n, Hkv, g, D)
+    qg = split_dim(q.float(), 2, Hkv, g)       # (B,n,Hkv,g,D)
     kc = k.float().reshape(B, n_kv_parts, kp, Hkv, D)
     vc = v.float().reshape(B, n_kv_parts, kp, Hkv, D)
     s = torch.einsum("bqkgd,bpjkd->bpkgqj", qg, kc) * D ** -0.5

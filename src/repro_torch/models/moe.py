@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel.constrain import constrain
+from repro_torch.parallel.constrain import batch_local, constrain
 
 
 @contextlib.contextmanager
@@ -85,6 +85,28 @@ def _dispatch_group(x: torch.Tensor, ids: torch.Tensor, C: int, E: int):
     return buf[:, :, :C], keep, safe_e, safe_c
 
 
+def _dense(h: torch.Tensor) -> torch.Tensor:
+    """A DTensor made contiguous, a plain tensor as it is.  A
+    redistribution leaves a DTensor's local shard dense in its logical
+    order while its global strides keep the layout it had before; the
+    einsum then takes a view the local shard cannot give.  A clone makes
+    the two agree."""
+    from torch.distributed.tensor import DTensor
+
+    return h.contiguous() if isinstance(h, DTensor) else h
+
+
+def _combine_group(y, keep, safe_e, safe_c, gates, C: int):
+    """y (G, E, C, d) expert outputs -> (G, Tg, d): each kept choice's
+    output gathered back, weighted by its gate and summed over the k."""
+    G, Tg, k = gates.shape
+    g_idx = torch.arange(G, device=y.device)[:, None]
+    yk = y[g_idx, safe_e, torch.clamp(safe_c, max=C - 1)]   # (G,Tg*k,d)
+    yk = torch.where(keep[..., None], yk, 0.0)
+    yk = yk.reshape(G, Tg, k, y.shape[-1]) * gates[..., None].to(yk.dtype)
+    return yk.sum(dim=2)
+
+
 def moe_ffn(
     x: torch.Tensor,        # (G, Tg, d) grouped tokens (G = batch rows)
     p: dict,                # router (d,E); wg/wu (E,d,Fe); wd (E,Fe,d)
@@ -102,19 +124,16 @@ def moe_ffn(
     gates = gates.reshape(G, Tg, k)
     ids = ids.reshape(G, Tg, k)
 
-    buf, keep, safe_e, safe_c = _dispatch_group(x, ids, C, E)
+    buf, keep, safe_e, safe_c = batch_local(
+        lambda x, ids: _dispatch_group(x, ids, C, E), x, ids)
     buf = constrain(buf, ("pod", "data"), "model", None, None)
 
     g = F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
     u = torch.einsum("gecd,edf->gecf", buf, p["wu"])
-    y = torch.einsum("gecf,efd->gecd", g * u, p["wd"])   # (G,E,C,d)
+    y = torch.einsum("gecf,efd->gecd", _dense(g * u), p["wd"])  # (G,E,C,d)
     y = constrain(y, ("pod", "data"), None, None, None)
-
-    g_idx = torch.arange(G, device=x.device)[:, None]
-    yk = y[g_idx, safe_e, torch.clamp(safe_c, max=C - 1)]   # (G,Tg*k,d)
-    yk = torch.where(keep[..., None], yk, 0.0)
-    yk = yk.reshape(G, Tg, k, d) * gates[..., None].to(yk.dtype)
-    out = yk.sum(dim=2)
+    out = batch_local(lambda *a: _combine_group(*a, C), y, keep, safe_e,
+                      safe_c, gates)
 
     # load-balance aux (Switch-style): E * sum_e f_e * P_e
     probs_mean = torch.softmax(logits.reshape(G * Tg, E), dim=-1).mean(0)

@@ -31,6 +31,7 @@ from repro_torch.parallel.constrain import (
     constrain_kv,
     pin_batch,
     sp_residual_enabled,
+    split_dim,
 )
 
 # {'k','v': (L,B,Smax,Hkv,hd), 'len': int}; ssm: {'conv_x','conv_bc':
@@ -291,9 +292,9 @@ def _proj_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+    q = split_dim(q, 2, H, hd)
+    k = split_dim(k, 2, Hkv, hd)
+    v = split_dim(v, 2, Hkv, hd)
     q = M.rope(q, positions, cfg.rope_theta)
     k = M.rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -347,7 +348,7 @@ def attn_decode(
     q, k, v = _proj_qkv(cfg, p, x, positions)
     cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
     cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
-    qg = q.reshape(B, Hkv, g, hd)
+    qg = split_dim(q[:, 0], 1, Hkv, g)             # (B,Hkv,g,hd)
     s = torch.einsum(
         "bkgd,bskd->bkgs", qg.float(), cache_k.float()
     ) * (hd ** -0.5)                              # (B,Hkv,g,Smax)

@@ -29,6 +29,7 @@ from repro_torch.parallel.sharding import (
 
 __all__ = [
     "attn_kv_parallel_enabled",
+    "batch_local",
     "batch_over_model",
     "constrain",
     "constrain_kv",
@@ -38,6 +39,7 @@ __all__ = [
     "resolved_spec",
     "scheme_context",
     "sp_residual_enabled",
+    "split_dim",
     "use_mesh",
 ]
 
@@ -196,6 +198,56 @@ def resolved_spec(shape, *spec, mesh):
     it leaves the tensor alone."""
     cleaned = _filter(spec, set(mesh_axes(mesh)))
     return _guarded(tuple(shape), cleaned, _axis_sizes(mesh))
+
+
+def batch_local(fn, *tensors):
+    """``fn(*tensors)`` computed from each rank's own rows: dim 0 of every
+    tensor is the batch (MoE token groups: batch rows), and ``fn`` keeps
+    rows apart.  On plain tensors it is ``fn(*tensors)``.  When one of
+    them is a DTensor, each DTensor is redistributed to the batch
+    sharding of the first (its ``Shard(0)`` mesh dims, the others
+    replicated), ``fn`` runs on the local shards, and what it returns
+    (a tensor, or a tuple of them) comes back as DTensors of that
+    sharding: the MoE dispatch's scatter and gather, which DTensor does
+    not take whole, run per shard as GSPMD partitions them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    first = next((t for t in tensors if isinstance(t, DTensor)), None)
+    if first is None:
+        return fn(*tensors)
+    mesh = first.device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in first.placements)
+    out = fn(*(t.redistribute(mesh, rows).to_local()
+               if isinstance(t, DTensor) else t for t in tensors))
+
+    def wrap(o):
+        return DTensor.from_local(o, mesh, rows, run_check=False)
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def split_dim(x, dim: int, parts: int, size: int):
+    """``x`` with dim `dim` split into (`parts`, `size`), as ``reshape``
+    does.  A DTensor sharded on that dim over mesh dims whose shard count
+    does not divide `parts` (qwen2.5's 40 heads over a 16-wide 'model')
+    is first replicated on it, which DTensor's ``view`` demands and
+    GSPMD does by itself; on a plain tensor this is the reshape."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dim = dim % x.ndim
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        on_dim = [i for i, p in enumerate(x.placements)
+                  if isinstance(p, Shard) and p.dim == dim]
+        n = 1
+        for i in on_dim:
+            n *= mesh.size(i)
+        if parts % n:
+            x = x.redistribute(mesh, tuple(
+                Replicate() if i in on_dim else p
+                for i, p in enumerate(x.placements)))
+    return x.reshape(*x.shape[:dim], parts, size, *x.shape[dim + 1:])
 
 
 def constrain_kv(x):

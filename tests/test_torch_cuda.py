@@ -393,6 +393,52 @@ def test_flash_attention_cuda_matches_plain(dev, name):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_attention_custom_op_equals_the_direct_launch(dev, name, lse):
+    """``flash_attention_cuda`` goes through the custom ops
+    ``repro_torch::flash_attention`` / ``flash_attention_lse``; their
+    body is the launch, so the bits are those of launching directly
+    (``_launch``, the wrapper's path before the op)."""
+    from repro_torch.kernels.flash_attention import _launch
+
+    b, h, hkv, sq, sk, d, dt, causal = FLASH_CASES[name]
+    rng = np.random.default_rng(sorted(FLASH_CASES).index(name))
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, dt)
+        for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, return_lse=lse)
+    want = _launch(q, k, v, causal, d ** -0.5, sk - sq, lse)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 2
+    if lse:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want[0]) and want[1] is None
+
+
+@pytest.mark.parametrize("lse", [False, True])
+def test_flop_counter_counts_kernel3_by_its_formula(dev, lse):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.flash_attention import flash_flops
+
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal(
+        (2, 100, 4, 64), dtype=np.float32)).to(dev, torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal(
+        (2, 130, 2, 64), dtype=np.float32)).to(dev, torch.bfloat16)
+    qt, kt = q.transpose(1, 2), k.transpose(1, 2)
+    before = flash_attention_cuda.launches
+    with FlopCounterMode(display=False) as fc:
+        flash_attention_cuda(qt, kt, kt, kv_offset=-20, return_lse=lse)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert fc.get_total_flops() == flash_flops(qt.shape, kt.shape, True,
+                                               -20)
+
+
 def test_chunked_attention_on_the_card_launches_once(dev):
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(

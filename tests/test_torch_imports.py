@@ -80,7 +80,8 @@ def test_scan_covers_the_whole_port():
             "planner.py", "dispatch.py", "placement.py", "host.py",
             "cluster.py", "tree.py", "train.py", "optimizers.py",
             "schedules.py", "compression.py", "synthetic.py", "loader.py",
-            "checkpoint.py", "loop.py", "moe.py", "mamba2.py"} <= names
+            "checkpoint.py", "loop.py", "moe.py", "mamba2.py",
+            "dryrun.py", "trace_analysis.py", "mesh.py"} <= names
     packages = {p.parent.name for p in SCANNED if p.name == "__init__.py"}
     assert {"adapt", "store", "cachesvc", "fleet", "elastic",
             "cluster", "optim", "data", "ckpt", "runtime"} <= packages
