@@ -188,20 +188,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    (loss, ce, aux and grad_norm within a relative 1e-5, every gradient
    leaf within 1e-4 of its largest magnitude, the updated params by
    phase 13's rule; kernel 3 must launch once per attention application
-   of each micro-step); (b) qwen2-0.5B at full width: an f32 loss and
+   of each micro-step and once more per layer its remat reruns), and the
+   loss and gradient with ``remat`` on against off (losses equal, every
+   leaf bit-equal, the MoE ones within 1e-4); (b) qwen2-0.5B at full
+   width: an f32 loss and
    every gradient leaf at B 2 x S 256 through the kernel's forward and
    the chunk-recompute backward against plain autograd through the
    plain attention (relative 1e-4), then bf16 training through
    ``repro_torch.launch.train.main`` at B 4 x S 2,048 for 20 steps on
    the token stream (every loss finite, the last five below the first
-   five, 24 x 20 flash launches), its step p50, peak allocated memory,
-   one traced step (busy, idle, largest activities) and the
-   chunk-recompute backward's time per layer; (c) mamba2-130m at full
+   five, 2 x 24 x 20 flash launches: each layer's remat reruns its
+   forward), its step p50, peak allocated memory, one traced step (busy,
+   idle, largest activities) and the chunk-recompute backward's time
+   per layer, then remat on against off from the same params and batch
+   (``remat_ab``: loss equal, gradients bit-equal, step p50, tokens/s,
+   peak allocated and launches a step of each: 48 and 24); (c)
+   mamba2-130m at full
    width (chunk 128): an f32 step whose grad_norm is finite, the same
    step through the reference's exp-then-mask SSD, whose grad_norm must
    not be, and bf16 ``TrainLoop`` training at B 4 x S 2,048 with an
    injected failure and a resume held ``torch.equal`` to the
-   uninterrupted run, its peak allocated memory and one traced step.
+   uninterrupted run, its peak allocated memory and one traced step,
+   then its remat on against off as qwen2's.
 15. the sharding layer (``shard_phase``): (a) param, optimizer, batch
    and cache shardings of all ten full configs on abstract 16 x 16 and
    2 x 16 x 16 meshes under ``default_scheme`` and the hillclimb's
@@ -221,7 +229,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    single launch; (d) HEP-Shard's ``search`` over ``attn_kv_parallel``
    and ``accum_steps``, each trial a bf16 AdamW train step at B 4 x S
    2,048 (one warm step, the median of two by CUDA events, peak memory,
-   the batch's copy), the card's memory as ``hbm_bytes``; the f32 loss
+   the batch's copy), the card's memory as ``hbm_bytes``, for the
+   default remat step and again without remat; the f32 loss
    and gradient through the kernel per part and the chunk-recompute
    backward against plain autograd (1e-4).
 16. the dry run (``dryrun_phase``): (a) qwen2-0.5B at full width, bf16,
@@ -233,7 +242,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    both must be equal, the predicted peak within 15 % of the measured
    one (``max_memory_allocated`` less what was allocated before the
    step's arguments), kernel 3 must launch once per layer of the
-   forward, and the predicted ``max(compute, memory) + collective``
+   forward and once more per layer the train step's remat reruns (48;
+   the prefill 24), and the predicted ``max(compute, memory) +
+   collective``
    (H100 datasheet rates) is printed beside the step's median of two by
    CUDA events; (b) ``launch.hillclimb.run_cell`` on the 16 x 16 fake
    mesh with fake CUDA tensors for the ``DRYRUN_CELLS``, one line per
@@ -254,10 +265,11 @@ explore job (``xnor_gemm_cuda``), phase 11's autotune sweep and
 serving (``xnor_gemm_cuda``), phase 12 (``xnor_gemm_cuda`` and
 ``segment_cuda``), phase 13 (``xnor_gemm_cuda`` and
 ``segment_cuda``), phase 14's qwen2 training
-(``flash_attention_cuda``, once per layer of each step), phase 15's
+(``flash_attention_cuda``, twice per layer of each step: the forward
+and its remat), phase 15's
 context-parallel prefill (``flash_attention_cuda`` with the
 log-sum-exp, once per layer and KV part) and phase 16's real train step
-and prefill (``flash_attention_cuda``, once per layer).  The last
+and prefill (``flash_attention_cuda``, twice and once per layer).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -410,6 +422,14 @@ LM_TRAIN_SMOKE_B, LM_TRAIN_SMOKE_S = 4, 64
 LM_TRAIN_LR = 1e-3
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 2048, 20
 SSD_TRAIN_STEPS, SSD_SAVE_EVERY, SSD_FAIL_AT = 3, 2, 3
+# per-layer remat on against off (phase 14): the timed AdamW steps of
+# each after a warm one, from the same params and batch.  The recompute
+# runs the same kernels on the same inputs, so the loss and every
+# gradient leaf are held bit-equal, except in the MoE families: there
+# the backward of the combine's gather and of repeat_interleave adds
+# rows with atomics in an order the launch decides, and each leaf is
+# held to the card-vs-CPU limit STEP_GRAD_RTOL instead
+REMAT_AB_STEPS = 3
 
 # the sharding layer (phase 15): scheme variants planned for every
 # config on the production meshes (the hillclimb's, src/repro/launch/
@@ -1812,11 +1832,107 @@ def lm_train_phase(dev, flash_ms: float) -> dict:
                                for t, g in zip(live, got)]
 
     def n_attention(cfg) -> int:
+        """Kernel 3's launches in one train forward and backward: each
+        attention application once, and once more in its layer's
+        recompute where ``cfg.remat`` checkpoints it (the hybrid's
+        weight-shared block is never checkpointed)."""
         if cfg.family == "ssm":
             return 0
         if cfg.family == "hybrid":
             return cfg.n_layers // cfg.hybrid.attn_every
-        return cfg.n_layers
+        return cfg.n_layers * (2 if cfg.remat else 1)
+
+    def remat_held(tag, cfg, params, batch) -> tuple:
+        """The loss and gradient of `cfg` at `params` with remat on and
+        off: the losses equal, each leaf bit-equal (MoE: within
+        ``STEP_GRAD_RTOL``), kernel 3 launched ``n_attention`` times by
+        each.  Returns (loss, bit-equal leaves, leaves, worst rel,
+        {remat: launches})."""
+        got, launched = {}, {}
+        for remat in (True, False):
+            c = dataclasses.replace(cfg, remat=remat)
+            before = launch_counts()["flash_attention_cuda"]
+            got[remat] = grads(c, params, batch)
+            torch.cuda.synchronize()
+            launched[remat] = launch_counts()["flash_attention_cuda"] - before
+            if launched[remat] != n_attention(c):
+                raise AssertionError(
+                    f"{tag} remat={remat}: {launched[remat]} flash launches, "
+                    f"{n_attention(c)} expected")
+        (l_on, g_on), (l_off, g_off) = got[True], got[False]
+        if not torch.equal(l_on, l_off):
+            raise AssertionError(f"{tag}: loss with remat {float(l_on)!r}, "
+                                 f"without {float(l_off)!r}")
+        same = [torch.equal(a, c) for a, c in zip(g_on, g_off)]
+        errs = [0.0 if eq else leaf_rel(a, c)
+                for eq, a, c in zip(same, g_on, g_off)]
+        limit = STEP_GRAD_RTOL if cfg.moe else 0.0
+        if max(errs) > limit:
+            worst_i = int(np.argmax(errs))
+            raise AssertionError(
+                f"{tag}: gradient {paths(params)[worst_i]} with remat vs "
+                f"without rel {errs[worst_i]} (limit {limit})")
+        return float(l_on), sum(same), len(same), max(errs), launched
+
+    def remat_ab(tag, cfg, batch) -> dict:
+        """`cfg` at full width from seeded params and one batch, remat on
+        and off: ``remat_held``, then per setting one warm AdamW step and
+        ``REMAT_AB_STEPS`` timed by CUDA events, the peak allocated over
+        them (``reset_peak_memory_stats`` after the warm step) and kernel
+        3's launches a step.  Returns {remat: numbers}."""
+        import gc
+
+        params = lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        loss, n_same, n_all, r_err, _ = remat_held(tag, cfg, params, batch)
+        n_tok = batch["tokens"].numel()
+        out = {}
+        for remat in (True, False):
+            c = dataclasses.replace(cfg, remat=remat)
+            opt = adamw(LM_TRAIN_LR)
+            step = lm_steps.make_train_step(c, opt)
+            gc.collect()
+            torch.cuda.empty_cache()
+            p, o, _ = step(params, opt.init(params), batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = launch_counts()["flash_attention_cuda"]
+            times = []
+            for _ in range(REMAT_AB_STEPS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                p, o, m = step(p, o, batch)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            n = (launch_counts()["flash_attention_cuda"] - before) / (
+                REMAT_AB_STEPS)
+            if n != n_attention(c):
+                raise AssertionError(f"{tag} remat={remat}: {n} flash "
+                                     f"launches a step")
+            out[remat] = {
+                "p50_ms": float(np.percentile(times, 50)),
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "launches": n, "times": times}
+            out[remat]["tok_s"] = n_tok / (out[remat]["p50_ms"] / 1e3)
+            del p, o, m, step
+        log(f"[lm train] {tag} bf16 B={LM_TRAIN_B} S={LM_TRAIN_S} remat on "
+            f"vs off, same params and batch: loss {loss:.6f} equal, "
+            f"{n_same} of {n_all} gradient leaves bit-equal (worst rel "
+            f"{r_err:.2e}); " + "; ".join(
+                f"remat {'on' if r else 'off'}: step p50 "
+                f"{v['p50_ms']:.3f} ms of {[round(t, 3) for t in v['times']]}"
+                f" (CUDA events, after a warm step), {v['tok_s']:.0f} "
+                f"tokens/s, peak allocated {v['peak_bytes'] / 2**30:.2f} "
+                f"GiB, kernel 3 launches a step {v['launches']:g}"
+                for r, v in out.items())
+            + f"; remat step / plain {out[True]['p50_ms'] / out[False]['p50_ms']:.3f}, "
+            f"peak {out[True]['peak_bytes'] / out[False]['peak_bytes']:.3f}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     # -- (a) every arch's smoke config: card step against CPU step --------
     worst = {"metric": 0.0, "grad": 0.0, "firm": 0.0, "soft": 0.0}
@@ -1892,6 +2008,10 @@ def lm_train_phase(dev, flash_ms: float) -> dict:
             line.append(f"accum {accum} {comp}: loss {float(m_d['loss']):.5f}"
                         f" rel {errs['loss']:.2e}, grad_norm rel "
                         f"{errs['grad_norm']:.2e}, {launched} launches")
+        _, n_same, n_all, r_err, r_n = remat_held(arch, cfg, p_dev, b_dev)
+        line.append(f"remat on vs off: {n_same} of {n_all} gradient leaves "
+                    f"bit-equal, worst rel {r_err:.2e}, launches {r_n[True]} "
+                    f"/ {r_n[False]}")
         log(f"[lm train] {arch} smoke (head dim {cfg.hd}) B "
             f"{LM_TRAIN_SMOKE_B} S {LM_TRAIN_SMOKE_S}: " + "; ".join(line))
     log(f"[lm train] 10 archs, card step vs CPU step: worst metric rel "
@@ -1916,7 +2036,7 @@ def lm_train_phase(dev, flash_ms: float) -> dict:
 
     before = launch_counts()["flash_attention_cuda"]
     loss_k, g_k = grads(cfg32, p32, batch)
-    if launch_counts()["flash_attention_cuda"] - before != cfg.n_layers:
+    if launch_counts()["flash_attention_cuda"] - before != n_attention(cfg32):
         raise AssertionError("the f32 check did not go through the kernel")
     loss_p, g_p = grads(cfg32, p32, batch, attention=plain_autograd)
     g_errs = [leaf_rel(a, c) for a, c in zip(g_k, g_p)]
@@ -1965,10 +2085,10 @@ def lm_train_phase(dev, flash_ms: float) -> dict:
         raise AssertionError("a qwen2 training loss is not finite")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
         raise AssertionError(f"the qwen2 loss did not fall: {losses}")
-    if n != cfg.n_layers * LM_TRAIN_STEPS:
+    if not cfg.remat or n != 2 * cfg.n_layers * LM_TRAIN_STEPS:
         raise AssertionError(f"flash_attention_cuda launched {n} times in "
                              f"{LM_TRAIN_STEPS} steps of {cfg.n_layers} "
-                             f"layers")
+                             f"layers, each run and rerun by its remat")
     loop = res["loop"]
     nxt = loop.batch_fn(LM_TRAIN_STEPS)
     wall, busy, by_name = traced(
@@ -1997,6 +2117,10 @@ def lm_train_phase(dev, flash_ms: float) -> dict:
         f"{cfg.n_layers} layers: {bwd_ms * cfg.n_layers:.1f} ms, "
         f"{100 * bwd_ms * cfg.n_layers / busy:.1f}% of the traced step's "
         f"busy time")
+    ab_tokens = make_token_stream(SEED, cfg.vocab)(0, LM_TRAIN_B,
+                                                   LM_TRAIN_S).to(dev)
+    ab = {cfg.name: remat_ab(cfg.name, cfg, {"tokens": ab_tokens,
+                                             "labels": ab_tokens})}
 
     # -- (c) mamba2-130m at full width ---------------------------------------
     mcfg = lm_configs.get("mamba2_130m")
@@ -2103,10 +2227,14 @@ def lm_train_phase(dev, flash_ms: float) -> dict:
                 resumed.start_step:]:
         raise AssertionError("the resumed mamba2 run does not equal the "
                              "uninterrupted one")
+    del init, ref, crash, resumed
+    ab_tokens = sample(0, LM_TRAIN_B, LM_TRAIN_S).to(dev)
+    ab[mcfg.name] = remat_ab(mcfg.name, mcfg, {"tokens": ab_tokens,
+                                               "labels": ab_tokens})
     seconds = time.perf_counter() - t_phase
     log(f"[lm train] phase 14: {seconds:.2f} s")
     return {"train_launches": n, "steps": LM_TRAIN_STEPS,
-            "seconds": seconds}
+            "seconds": seconds, "remat_ab": ab}
 
 
 def shard_plans() -> dict:
@@ -2474,11 +2602,10 @@ def shard_phase(dev, flash_ms: float) -> dict:
             0, cfg.vocab, (LM_TRAIN_B, LM_TRAIN_S)))
         init = lm.init_params(
             cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-        tried: list = []
 
-        def evaluate(s) -> ShardTrial:
+        def evaluate(s, tcfg, tried) -> ShardTrial:
             opt = adamw(LM_TRAIN_LR)
-            step = lm_steps.make_train_step(cfg, opt,
+            step = lm_steps.make_train_step(tcfg, opt,
                                             accum_steps=s.accum_steps)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2509,38 +2636,50 @@ def shard_phase(dev, flash_ms: float) -> dict:
                 h2d_s=h0.elapsed_time(h1) / 1e3, hbm_bytes=hbm))
             return tried[-1]
 
-        t0 = time.perf_counter()
-        launched0 = flash_attention_cuda.lse_launches
-        best, history = search(evaluate, SH.default_scheme(cfg),
-                               knobs=SHARD_KNOBS,
-                               log=lambda line: log(f"[hep-shard]{line}"))
-        search_s = time.perf_counter() - t0
-        hist = [(t.scheme.attn_kv_parallel, t.scheme.accum_steps)
-                for t in history]
-        for t in tried:
-            log(f"[hep-shard] trial attn_kv_parallel="
-                f"{t.scheme.attn_kv_parallel} accum_steps="
-                f"{t.scheme.accum_steps}: step median "
-                f"{t.compute_s * 1e3:.3f} ms of {SHARD_TIMED} (after a warm "
-                f"step), peak {t.peak_bytes / 2**30:.2f} GiB, batch h2d "
-                f"{t.h2d_s * 1e6:.1f} us, cost {t.cost:.6f} s")
-        log(f"[hep-shard] {cfg.name} bf16 AdamW B={LM_TRAIN_B} "
-            f"S={LM_TRAIN_S}, knobs {SHARD_KNOBS}, hbm_bytes {hbm} (the "
-            f"card's): {len(tried)} trials, history (attn_kv_parallel, "
-            f"accum_steps) {hist}, {search_s:.1f} s; chosen attn_kv_parallel="
-            f"{best.scheme.attn_kv_parallel} accum_steps="
-            f"{best.scheme.accum_steps}, cost {best.cost:.6f} s; kernel 3 "
-            f"log-sum-exp launches over the search "
-            f"{flash_attention_cuda.lse_launches - launched0}")
-        if best.cost != min(t.cost for t in tried) or not any(
-                t.scheme.attn_kv_parallel for t in tried):
-            raise AssertionError("the search did not try both attentions or "
-                                 "did not keep its best")
-        res["trials"] = {
-            f"attn_kv_parallel={t.scheme.attn_kv_parallel} accum_steps="
-            f"{t.scheme.accum_steps}": {"step_s": t.compute_s,
-                                        "peak_bytes": t.peak_bytes}
-            for t in tried}
+        # the default train step (each layer rematerialised), then the
+        # same search without remat beside it
+        res["trials"], chosen = {}, {}
+        for remat in (True, False):
+            tcfg = dataclasses.replace(cfg, remat=remat)
+            how = "remat on" if remat else "remat off"
+            tried: list = []
+            t0 = time.perf_counter()
+            launched0 = flash_attention_cuda.lse_launches
+            best, history = search(
+                lambda s_: evaluate(s_, tcfg, tried), SH.default_scheme(cfg),
+                knobs=SHARD_KNOBS,
+                log=lambda line: log(f"[hep-shard] {how}{line}"))
+            search_s = time.perf_counter() - t0
+            hist = [(t.scheme.attn_kv_parallel, t.scheme.accum_steps)
+                    for t in history]
+            for t in tried:
+                log(f"[hep-shard] {how} trial attn_kv_parallel="
+                    f"{t.scheme.attn_kv_parallel} accum_steps="
+                    f"{t.scheme.accum_steps}: step median "
+                    f"{t.compute_s * 1e3:.3f} ms of {SHARD_TIMED} (after a "
+                    f"warm step), peak {t.peak_bytes / 2**30:.2f} GiB, batch "
+                    f"h2d {t.h2d_s * 1e6:.1f} us, cost {t.cost:.6f} s")
+            log(f"[hep-shard] {how} {cfg.name} bf16 AdamW B={LM_TRAIN_B} "
+                f"S={LM_TRAIN_S}, knobs {SHARD_KNOBS}, hbm_bytes {hbm} (the "
+                f"card's): {len(tried)} trials, history (attn_kv_parallel, "
+                f"accum_steps) {hist}, {search_s:.1f} s; chosen "
+                f"attn_kv_parallel={best.scheme.attn_kv_parallel} "
+                f"accum_steps={best.scheme.accum_steps}, cost "
+                f"{best.cost:.6f} s; kernel 3 log-sum-exp launches over the "
+                f"search {flash_attention_cuda.lse_launches - launched0}")
+            if best.cost != min(t.cost for t in tried) or not any(
+                    t.scheme.attn_kv_parallel for t in tried):
+                raise AssertionError("the search did not try both attentions "
+                                     "or did not keep its best")
+            chosen[remat] = (best.scheme.attn_kv_parallel,
+                             best.scheme.accum_steps)
+            res["trials"].update({
+                f"{how} attn_kv_parallel={t.scheme.attn_kv_parallel} "
+                f"accum_steps={t.scheme.accum_steps}": {
+                    "step_s": t.compute_s, "peak_bytes": t.peak_bytes}
+                for t in tried})
+        log(f"[hep-shard] chosen (attn_kv_parallel, accum_steps): remat on "
+            f"{chosen[True]}, remat off {chosen[False]}")
         del init
         torch.cuda.empty_cache()
 
@@ -2563,8 +2702,9 @@ def shard_phase(dev, flash_ms: float) -> dict:
 
         before = flash_attention_cuda.lse_launches
         loss_k, g_k = grads(scheme=kv)
+        # each layer's parts once in the forward and once in its remat
         if flash_attention_cuda.lse_launches - before != (
-                SHARD_F32_LAYERS * KV_PARTS):
+                SHARD_F32_LAYERS * KV_PARTS * (2 if cfg32.remat else 1)):
             raise AssertionError("the f32 gradient check missed the kernel")
         loss_p, g_p = grads(attention=plain_autograd)
         g_errs = [leaf_rel(a, c) for a, c in zip(g_k, g_p)]
@@ -2696,9 +2836,11 @@ def dryrun_phase(dev) -> dict:
         if abs(ratio - 1.0) > DRYRUN_PEAK_REL:
             raise AssertionError(f"{kind}: predicted peak {peak_pred} vs "
                                  f"measured {peak}, ratio {ratio}")
-        if launched != cfg.n_layers:
+        # the train step reruns each layer's forward in its backward
+        want = cfg.n_layers * (2 if kind == "train" and cfg.remat else 1)
+        if launched != want:
             raise AssertionError(f"{kind}: kernel 3 launched {launched} "
-                                 f"times, {cfg.n_layers} layers")
+                                 f"times, {want} expected")
         out["steps"][kind] = {
             "flops": flops_pred, "peak_pred": peak_pred, "peak": peak,
             "step_pred_ms": step_pred_ms, "step_ms": step_ms}
@@ -3756,7 +3898,10 @@ def main() -> int:
              f"{LM_ARCH} dry-run check, prefill":
                  dry["launches"]["prefill"]},
          "launches_per_train_step": {
-             LM_ARCH: lm_train["train_launches"] / lm_train["steps"]},
+             LM_ARCH: lm_train["train_launches"] / lm_train["steps"],
+             **{f"{name} remat {'on' if r else 'off'}": v["launches"]
+                for name, ab in lm_train["remat_ab"].items()
+                for r, v in ab.items()}},
          "ms_by_shape": {a: r["ms"] for a, r in flash_times.items()},
          "bound_ms_by_shape": {a: r["bound_ms"]
                                for a, r in flash_times.items()}},

@@ -6,7 +6,10 @@ JAX package's ``_shape_tree`` lays them out; a Python loop over L takes
 the place of ``lax.scan``.  Prefill attention is
 ``modules.chunked_attention`` (the hand-written flash kernel on CUDA
 tensors); decode attention is the plain grouped einsum over the cache,
-outside any kernel in the JAX package too.  MoE blocks route through
+outside any kernel in the JAX package too.  With ``cfg.remat`` a train
+forward checkpoints each attention and Mamba layer (``_remat``), where
+the JAX package wraps its scanned layer body in ``jax.checkpoint``.
+MoE blocks route through
 ``moe.moe_ffn``; the SSM family stacks ``mamba2.mamba_block``s, and the
 hybrid (zamba2) family runs ``attn_every``-layer Mamba segments with a
 weight-shared attention block after each.
@@ -14,12 +17,15 @@ weight-shared attention block after each.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import modules as M
@@ -33,6 +39,7 @@ from repro_torch.parallel.constrain import (
     sp_residual_enabled,
     split_dim,
 )
+from repro_torch.tree import leaves
 
 # {'k','v': (L,B,Smax,Hkv,hd), 'len': int}; ssm: {'conv_x','conv_bc':
 # (L,B,K,C), 'ssd': (L,B,H,P,N) f32, 'len'}; hybrid: both, k/v stacked
@@ -42,6 +49,51 @@ Cache = dict
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+@contextlib.contextmanager
+def _context_of(ctx: contextvars.Context):
+    """Every context variable set to its value in ``ctx`` for the
+    block."""
+    tokens = [(var, var.set(value)) for var, value in ctx.items()]
+    try:
+        yield
+    finally:
+        for var, tok in reversed(tokens):
+            var.reset(tok)
+
+
+def _recompute_in_forward_context():
+    # the autograd engine runs a CUDA backward on its own device thread,
+    # which sees none of the caller's context variables: the recompute
+    # gets the forward's ambient mesh and scheme (parallel.constrain)
+    return contextlib.nullcontext(), _context_of(contextvars.copy_context())
+
+
+def _remat(cfg: ModelConfig, fn: Callable, decode: bool) -> Callable:
+    """``fn``, a layer body, under a non-reentrant
+    ``torch.utils.checkpoint`` when ``cfg.remat`` asks for it, autograd
+    records and the call is not a decode step: the backward recomputes
+    the layer's forward from its inputs instead of keeping its
+    intermediates, where the JAX package wraps the scanned body in
+    ``jax.checkpoint``.  The recompute runs in the forward's context
+    variables, and stops once the tensors the backward saved are rebuilt
+    (a layer's last matmul is not rerun).  No layer draws random
+    numbers, so the RNG state is not stashed (which also lets the dry
+    run's fake CUDA tensors through on hosts without a card).  Otherwise
+    ``fn`` itself, as for a layer with nothing to differentiate (a
+    prefill with autograd on)."""
+    if not (cfg.remat and torch.is_grad_enabled() and not decode):
+        return fn
+
+    def run(h, bp):
+        if not (h.requires_grad or any(t.requires_grad for t in leaves(bp))):
+            return fn(h, bp)
+        return checkpoint(fn, h, bp, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=_recompute_in_forward_context)
+
+    return run
 
 
 def _pin_residual(x: torch.Tensor) -> torch.Tensor:
@@ -497,14 +549,20 @@ def _forward_attn(cfg, params, x, positions, cache, decode, return_cache,
             )
             aux = aux + a
         return x, {"k": cache["k"], "v": cache["v"]}, aux
+
+    def body(h, bp):
+        h, kv, a = attn_block_apply(cfg, bp, h, positions,
+                                    attention=attention)
+        return h, a, kv if return_cache else None
+
+    body = _remat(cfg, body, decode)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v), a = attn_block_apply(
-            cfg, blocks[i], x, positions, attention=attention)
+        x, a, kv = body(x, blocks[i])
         aux = aux + a
         if return_cache:
-            ks.append(k)
-            vs.append(v)
+            ks.append(kv[0])
+            vs.append(kv[1])
     if not return_cache:
         return x, None, aux
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
@@ -517,7 +575,10 @@ def _mamba_layers(cfg, blocks, x, layers, cache, decode, caches):
     """Mamba blocks ``layers`` of the stack (``blocks``: the per-layer
     list of :func:`_layers`).  Decode reads layer i's state from
     ``cache`` and writes the new one back in place; prefill appends each
-    layer's handoff state to ``caches`` (a list) when it is not None."""
+    layer's handoff state to ``caches`` (a list) when it is not None.
+    Each layer is a :func:`_remat` body, as the JAX package checkpoints
+    its scanned Mamba layers."""
+    body = _remat(cfg, lambda h, bp: mamba_block_apply(cfg, bp, h), decode)
     for i in layers:
         if decode:
             x, nc = mamba_block_apply(
@@ -526,7 +587,7 @@ def _mamba_layers(cfg, blocks, x, layers, cache, decode, caches):
             for k in _SSM_CACHE_KEYS:
                 cache[k][i] = nc[k]
         else:
-            x, nc = mamba_block_apply(cfg, blocks[i], x)
+            x, nc = body(x, blocks[i])
             if caches is not None:
                 caches.append(nc)
     return x
@@ -557,7 +618,9 @@ def _forward_hybrid(cfg, params, x, positions, cache, decode, return_cache,
                     attention=None):
     """Mamba backbone; the weight-shared attention block runs after each
     k-layer segment (its KV cache is stacked over the n_seg segments),
-    and the tail layers have no block after them."""
+    and the tail layers have no block after them.  The Mamba layers are
+    :func:`_remat` bodies; the shared block is not, as in the JAX
+    package."""
     k, n_seg, _ = _hybrid_split(cfg)
     blocks = _layers(params["blocks"], cfg.n_layers)
     shared = params["shared"]

@@ -2,11 +2,15 @@
 itself, on CPU tensors and fake process groups: the traced per-device
 FLOPs of a step on a 1 x 1 mesh equal ``FlopCounterMode``'s over the
 same step run for real on plain CPU tensors, exactly (the check phase 16
-of ``chip_smoke.py`` makes at full width on the card); a 1 x 1 mesh
-emits no collective; a data-parallel mesh splits the FLOPs evenly; and
-head counts a wide 'model' axis does not divide still trace."""
+of ``chip_smoke.py`` makes at full width on the card), for the default
+train step (each layer rematerialised, ``cfg.remat``) and for the one
+without remat; a 1 x 1 mesh emits no collective; a data-parallel mesh
+splits the FLOPs evenly; and head counts a wide 'model' axis does not
+divide still trace."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import pytest
 
@@ -62,6 +66,22 @@ def test_one_by_one_flops_equal_flop_counter_on_the_real_step(arch, kind):
     assert r["collectives"]["per_device_bytes"] == 0.0
     assert r["collectives"]["by_kind_count"] == {}
     assert r["per_device"]["hlo_flops"] == _real_step_flops(cfg, kind, B, S)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmo_1b",
+                                  "deepseek_moe_16b", "mamba2_130m",
+                                  "zamba2_7b", "musicgen_medium"])
+def test_one_by_one_flops_equal_flop_counter_without_remat(arch):
+    """The train step with ``remat=False`` (no layer recompute) beside
+    the default remat step above: both programs stay held."""
+    cfg = dataclasses.replace(T_C.get_smoke(arch), remat=False)
+    B, S = 4, 64
+    with fake_process_group(1):
+        mesh = make_debug_mesh((1, 1), ("data", "model"), device_type="cpu")
+        r = D.dry_run(cfg, T_C.ShapeCell("t", "train", S, B), mesh,
+                      device="cpu")
+    assert r["per_device"]["hlo_flops"] == _real_step_flops(
+        cfg, "train", B, S)
 
 
 def test_sharded_flops_split_over_the_mesh():
