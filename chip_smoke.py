@@ -249,6 +249,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA events; (b) ``launch.hillclimb.run_cell`` on the 16 x 16 fake
    mesh with fake CUDA tensors for the ``DRYRUN_CELLS``, one line per
    variant (derived numbers, datasheet-priced), and the phase's wall.
+17. the sharded step on 8 ranks (``spmd_phase``): 8 processes from
+   ``launch.mesh.spawn_world`` share the card through ``gloo`` (nccl
+   refuses two ranks on one GPU), every collective through host memory:
+   a correctness path, no multi-card or NVLink claim.  First a probe of
+   the functional collectives DTensor issues, on CUDA tensors in 2-rank
+   worlds: gloo's ``all_gather_into_tensor`` kills its processes
+   (SIGSEGV) on the card's torch, so the ranks run every all-gather as
+   an ``all_to_all_single`` (``all_gather_through_all_to_all``), which
+   the probe holds too.  Then qwen2-0.5B at full width under
+   ``ShardScheme(tp=True, fsdp="zero1")`` on a (2, 4) and a (4, 2)
+   ('data', 'model') mesh (14 heads over 4 do not divide, over 2 they
+   do), weights from phase 4b's seeded generator on every rank: the f32
+   forward at 2 layers, B 8 x S 256, against the one-rank forward
+   (``LM_F32_REL``); the bf16 prefill at B 8 x S 512, its last logits
+   against the one-rank prefill (``LM_BF16_REL``), kernel 3 once per
+   layer on every rank (24, read from each rank's own counters), its
+   wall beside the one-rank prefill's; on (2, 4) one bf16 AdamW step
+   at ``accum_steps`` 1 and 4 (``SPMD_TRAIN_LAYERS``: the depth cut
+   the card's memory forces, printed), loss and grad_norm against the
+   one-rank step (``SPMD_TRAIN_REL``), each micro-batch's tokens
+   ``Shard(0)`` over 'data' on every rank; rank 0's ``StepRecorder``
+   over the (2, 4) prefill equal, collective by collective and in
+   ``dot_flops``, to ``launch.dryrun.dry_run``'s on a fake (2, 4) CUDA
+   group.
 
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
@@ -268,8 +292,10 @@ serving (``xnor_gemm_cuda``), phase 12 (``xnor_gemm_cuda`` and
 (``flash_attention_cuda``, twice per layer of each step: the forward
 and its remat), phase 15's
 context-parallel prefill (``flash_attention_cuda`` with the
-log-sum-exp, once per layer and KV part) and phase 16's real train step
-and prefill (``flash_attention_cuda``, twice and once per layer).  The last
+log-sum-exp, once per layer and KV part), phase 16's real train step
+and prefill (``flash_attention_cuda``, twice and once per layer) and
+phase 17's 8-rank prefills (``flash_attention_cuda`` once per layer on
+each rank, counted in each rank's process).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -460,6 +486,34 @@ LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 DRYRUN_PEAK_REL = 0.15
 DRYRUN_TIMED = 2
 DRYRUN_CELLS = ("deepseek", "qwen-prefill")
+# phase 17: the sharded step on 8 ranks that share the one card through
+# gloo (nccl refuses two ranks on one GPU), every collective through host
+# memory.  The collectives DTensor issues for these steps, probed first
+# on CUDA tensors in a 2-rank world
+SPMD_WORLD = 8
+SPMD_MESHES = ((2, 4), (4, 2))
+SPMD_SCHEME = {"tp": True, "fsdp": "zero1"}
+SPMD_F32_LAYERS = 2
+SPMD_F32_SHAPE = (8, 256)
+SPMD_SHAPE = (8, 512)            # the bf16 prefill and train step
+SPMD_TRAIN_MESH = (2, 4)
+SPMD_TRAIN_ACCUM = (1, 4)
+# the train step's depth (None: all 24 layers), cut and the cut printed:
+# at 24 layers the accum-4 step's f32 gradient sums on 8 ranks outgrow
+# the one card (an NVIDIA H100 80GB HBM3 at 700 W: 8.1-8.6 GiB a rank
+# allocated when it ran out)
+SPMD_TRAIN_LAYERS = 12
+# loss and grad_norm of the bf16 step on 8 ranks against one rank:
+# bf16 activations rounded at other places (sharded sums), as phase 4b's
+# bf16 limit allows for logits
+SPMD_TRAIN_REL = 1e-2
+SPMD_TIMEOUT_S = 900.0
+# gloo's own all-gather, probed in a world of its own (it crashes), and
+# the all-gather phase 17's ranks run (all_gather_through_all_to_all)
+SPMD_RAW_ALL_GATHER = "all_gather_into_tensor"
+SPMD_ROUTED = "all_gather_into_tensor through all_to_all_single"
+SPMD_PROBED = ("all_reduce", "reduce_scatter_tensor", "all_to_all_single",
+               SPMD_ROUTED)
 
 # adaptive serving (phase 9): requests per burst, calibration stops after
 # this many steps without a new journal entry (at most CALIBRATE_MAX
@@ -2872,6 +2926,378 @@ def dryrun_phase(dev) -> dict:
     return out
 
 
+def all_gather_through_all_to_all():
+    """gloo's ``all_gather_into_tensor`` on CUDA tensors kills the
+    process (SIGSEGV in the card's torch 2.11; phase 17's probe shows
+    it), where its ``all_to_all_single`` runs.  This makes the
+    functional all-gather's CUDA kernel an ``all_to_all_single`` of the
+    input repeated once per rank: every rank receives each rank's input,
+    the same bytes an all-gather moves, on the same CUDA tensors.  For
+    phase 17's rank processes, whose every collective is gloo's; a
+    ``StepRecorder`` still sees the all-gather DTensor issued.  Returns
+    the ``torch.library.Library`` that holds the kernel (it lasts as
+    long as the object)."""
+    import torch
+
+    def all_gather_into_tensor(input, group_size, group_name):
+        x = input.contiguous()
+        rows = [x.shape[0]] * group_size
+        return torch.ops._c10d_functional.all_to_all_single(
+            x.repeat(group_size, *([1] * (x.dim() - 1))), rows, rows,
+            group_name)
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    return lib
+
+
+def gloo_probe_rank(rank: int, names: tuple) -> dict:
+    """One rank of the gloo-on-CUDA probe: each functional collective of
+    `names` (the form DTensor issues; ``SPMD_ROUTED`` is the all-gather
+    through :func:`all_gather_through_all_to_all`) on a CUDA tensor of
+    2 x world x 4 floats, held to what it must give.  Returns {name: "ok" or the
+    refusal's first line}: the refusals are what the probe is for, and a
+    refusal is an argument check that each rank makes alike."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = dist.get_world_size()
+    group = dist.group.WORLD
+    x = torch.arange(8.0 * n, device=dev).reshape(2 * n, 4) + rank
+    every = [x - rank + r for r in range(n)]      # each rank's x
+    out = {}
+    for name in names:
+        routed = all_gather_through_all_to_all() if name == SPMD_ROUTED \
+            else None
+        try:
+            if name in (SPMD_RAW_ALL_GATHER, SPMD_ROUTED):
+                got = funcol.all_gather_tensor(x, 0, group)
+                want = torch.cat(every)
+            elif name == "all_reduce":
+                got = funcol.all_reduce(x, "sum", group)
+                want = sum(every)
+            elif name == "reduce_scatter_tensor":
+                got = funcol.reduce_scatter_tensor(x, "sum", 0, group)
+                want = sum(every).chunk(n)[rank]
+            else:
+                got = funcol.all_to_all_single(x, None, None, group)
+                want = torch.cat([t.chunk(n)[rank] for t in every])
+            got = funcol.wait_tensor(got)
+            torch.cuda.synchronize(dev)
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:160]}"
+            continue
+        finally:
+            del routed
+        out[name] = ("ok" if got.is_cuda and torch.equal(got.cpu(),
+                                                         want.cpu())
+                     else f"wrong values on {got.device}")
+    return out
+
+
+def spmd_rank(rank: int, plan: dict) -> dict:
+    """One rank of phase 17 (``spmd_phase``): for each mesh of `plan`,
+    the f32 forward at ``f32_layers`` (rank 0 holds it to the one-rank
+    forward), a warm bf16 prefill (on ``record_mesh`` rank 0's under a
+    ``StepRecorder``), the timed prefill with this rank's kernel 3
+    launches, and on ``train_mesh`` one train step per ``accum`` with the
+    micro-batch placements ``loss_fn`` saw.  Rank 0 also runs the
+    one-rank prefill and steps (plain tensors, no mesh) and returns the
+    errors.  `plan` names the device type, the config and the sizes, so
+    a CPU world can rehearse it at smoke size."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.trace_analysis import StepRecorder
+    from repro_torch.models import steps as lm_steps
+    from repro_torch.models import transformer as lm
+    from repro_torch.parallel.constrain import on_mesh
+    from repro_torch.parallel.sharding import ShardScheme
+
+    cuda = plan["device_type"] == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    # what the steps need of gloo on CUDA tensors, probed in this world
+    # (the override is installed after: the probe installs its own)
+    out = {"rank": rank, "meshes": {},
+           "probe": gloo_probe_rank(rank, plan["probe"]) if cuda else {}}
+    routed = all_gather_through_all_to_all() if cuda else None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = plan["cfg"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    t_rank = time.perf_counter()
+
+    def progress(what):
+        if cuda:
+            torch.cuda.empty_cache()   # the other ranks share the card
+        if rank == 0:
+            log(f"[spmd] rank 0: {what} at {time.perf_counter() - t_rank:.1f}"
+                f" s" + (f", {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+                         f" GiB peak allocated" if cuda else ""))
+
+    def tokens(shape):
+        return torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, shape, dtype=np.int32)).to(dev)
+
+    for shape in plan["meshes"]:
+        mesh = make_debug_mesh(shape, ("data", "model"), plan["device_type"])
+        scheme = ShardScheme(**plan["scheme"])
+        res = {}
+        # -- (b) the f32 forward at f32_layers ----------------------------
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    n_layers=plan["f32_layers"])
+        p32 = lm.init_params(cfg32, generator(), dev)
+        toks = tokens(plan["f32_shape"])
+        logits, _ = spmd.forward(cfg32, mesh, scheme, p32, toks)
+        if rank == 0:
+            ref, _, _ = lm.forward(cfg32, p32, toks)
+            res["f32_rel"] = rel(logits, ref)
+            res["f32_finite"] = bool(torch.isfinite(logits).all())
+            del ref
+        del p32, logits
+        progress(f"{shape} f32 forward")
+
+        # -- (b) the bf16 prefill, (d) recorded, (e) timed ----------------
+        params = lm.init_params(cfg, generator(), dev)
+        batch = {"tokens": tokens(plan["shape"])}
+        rec = (StepRecorder() if rank == 0
+               and tuple(shape) == tuple(plan["record_mesh"]) else None)
+        spmd.run_step(cfg, "prefill", mesh, scheme, params, batch,
+                      recorder=rec)                          # warm
+        if rec is not None:
+            coll = rec.collectives
+            res["recorded"] = {"bytes_by_kind": coll.bytes_by_kind,
+                               "count_by_kind": coll.count_by_kind,
+                               "dot_flops": rec.dot_flops}
+        run, _ = spmd.sharded_step(cfg, "prefill", mesh, scheme, params,
+                                   batch)
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with on_mesh(mesh, scheme):
+            last, _ = run()
+        sync()
+        res["prefill_s"] = time.perf_counter() - t0
+        res["launches"] = launch_counts()["flash_attention_cuda"]
+        last = last.full_tensor()
+        del run
+        if rank == 0:
+            prefill = lm_steps.make_prefill_step(cfg)
+            prefill(params, batch["tokens"])                 # warm
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            ref, _ = prefill(params, batch["tokens"])
+            if cuda:
+                torch.cuda.synchronize(dev)
+            res["local_prefill_s"] = time.perf_counter() - t0
+            res["prefill_rel"] = rel(last, ref)
+            res["prefill_finite"] = bool(torch.isfinite(last).all())
+            del ref
+        del last
+        progress(f"{shape} bf16 prefill")
+
+        # -- (c) train steps ----------------------------------------------
+        if tuple(shape) == tuple(plan["train_mesh"]):
+            tcfg = (cfg if plan["train_layers"] is None else
+                    dataclasses.replace(cfg, n_layers=plan["train_layers"]))
+            if tcfg is not cfg:
+                del params
+                params = lm.init_params(tcfg, generator(), dev)
+            tparams = params
+            toks = batch["tokens"]
+            tbatch = {"tokens": toks, "labels": toks}
+            res["train"] = {}
+            for accum in plan["accum"]:
+                tscheme = ShardScheme(**plan["scheme"], accum_steps=accum)
+                seen = []
+                loss_fn = lm_steps.loss_fn
+
+                def spy(cfg_, params_, tokens_, *args, **kwargs):
+                    seen.append(repr(tuple(tokens_.placements)))
+                    return loss_fn(cfg_, params_, tokens_, *args, **kwargs)
+
+                run, _ = spmd.sharded_step(tcfg, "train", mesh, tscheme,
+                                           tparams, tbatch)
+                sync()
+                t0 = time.perf_counter()
+                lm_steps.loss_fn = spy
+                try:
+                    with on_mesh(mesh, tscheme):
+                        _, _, metrics = run()
+                finally:
+                    lm_steps.loss_fn = loss_fn
+                sync()
+                step_s = time.perf_counter() - t0
+                metrics = {k: float(v) for k, v in
+                           spmd.full_tensors(metrics).items()}
+                del run
+                progress(f"{shape} train step, accum {accum}")
+                got = {"step_s": step_s, "metrics": metrics,
+                       "placements": seen}
+                if rank == 0:
+                    _, _, ref = spmd.local_step(tcfg, "train", tparams,
+                                                tbatch, tscheme)
+                    got["local_metrics"] = {k: float(v)
+                                            for k, v in ref.items()}
+                res["train"][accum] = got
+                progress(f"{shape} one-rank train step, accum {accum}")
+            del tparams
+        del params, batch
+        out["meshes"][tuple(shape)] = res
+    del routed
+    return out
+
+
+def spmd_phase(dev) -> dict:
+    """Phase 17: the port's sharded LM steps on a real world of
+    ``SPMD_WORLD`` processes that share the one card through gloo (every
+    collective crosses host memory: a correctness path, no multi-card or
+    NVLink claim).  The probe of the collectives gloo takes on CUDA
+    tensors; qwen2-0.5B at full width on each of ``SPMD_MESHES`` under
+    ``SPMD_SCHEME``: the f32 forward at ``SPMD_F32_LAYERS`` held to one
+    rank at ``LM_F32_REL``, the bf16 prefill's last logits at
+    ``LM_BF16_REL``, kernel 3 once per layer on every rank; on
+    ``SPMD_TRAIN_MESH`` the bf16 AdamW step per ``SPMD_TRAIN_ACCUM``
+    (loss and grad_norm within ``SPMD_TRAIN_REL``, each micro-batch
+    ``Shard(0)`` over 'data'); rank 0's recorded prefill collectives and
+    FLOPs equal to ``dry_run``'s on a fake (2, 4) CUDA group.  Returns
+    {"launches": {mesh: per-rank kernel 3 launches}, "seconds": wall,
+    "probe": {collective: what gloo did with it}}."""
+    import gc
+
+    import torch
+    from repro_torch import configs as lm_configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (
+        fake_process_group, make_debug_mesh, spawn_world,
+    )
+    from repro_torch.parallel.sharding import ShardScheme
+
+    t_phase = time.perf_counter()
+    cfg = lm_configs.get(LM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[spmd] the parent process holds "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB of the card")
+    # 8 caching allocators share the card: segments that grow in place
+    # keep each one's unused reserve small (the ranks inherit it)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    # gloo's own all-gather on CUDA tensors kills its processes
+    # (SIGSEGV): it is probed in a world of its own; the collectives the
+    # steps use are probed in the ranks' world (spmd_rank)
+    try:
+        got = spawn_world(2, gloo_probe_rank, (SPMD_RAW_ALL_GATHER,),
+                          backend="gloo", device_type="cuda", timeout=120.0)
+        raw = sorted({r[SPMD_RAW_ALL_GATHER] for r in got})
+    except RuntimeError as e:
+        raw = [f"crashed: {str(e).splitlines()[0][:160]}"]
+    log(f"[spmd] gloo's {SPMD_RAW_ALL_GATHER} on CUDA tensors, 2 ranks: "
+        f"{raw} ({time.perf_counter() - t_phase:.1f} s)")
+
+    record_mesh = SPMD_MESHES[0]
+    scheme = ShardScheme(**SPMD_SCHEME)
+    cell = lm_configs.ShapeCell("spmd prefill", "prefill", SPMD_SHAPE[1],
+                                SPMD_SHAPE[0])
+    with fake_process_group(SPMD_WORLD):
+        mesh = make_debug_mesh(record_mesh, ("data", "model"),
+                               device_type="cuda")
+        pred = dryrun.dry_run(cfg, cell, mesh, scheme, device=dev)
+    plan = {"device_type": "cuda", "cfg": cfg, "meshes": SPMD_MESHES,
+            "scheme": SPMD_SCHEME, "f32_layers": SPMD_F32_LAYERS,
+            "f32_shape": SPMD_F32_SHAPE, "shape": SPMD_SHAPE,
+            "record_mesh": record_mesh, "train_mesh": SPMD_TRAIN_MESH,
+            "probe": SPMD_PROBED,
+            "accum": SPMD_TRAIN_ACCUM, "train_layers": SPMD_TRAIN_LAYERS}
+    t0 = time.perf_counter()
+    ranks = spawn_world(SPMD_WORLD, spmd_rank, plan, backend="gloo",
+                        device_type="cuda", timeout=SPMD_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    probe = {k: sorted({r["probe"][k] for r in ranks}) for k in SPMD_PROBED}
+    log(f"[spmd] gloo on CUDA tensors, {SPMD_WORLD} ranks (one card), the "
+        f"functional collectives DTensor issues: {json.dumps(probe)}")
+    launches = {}
+    failures = [f"gloo {k}: {v}" for k, v in probe.items() if v != ["ok"]]
+    probe[SPMD_RAW_ALL_GATHER] = raw
+    for shape in SPMD_MESHES:
+        r0 = ranks[0]["meshes"][shape]
+        per_rank = [r["meshes"][shape]["launches"] for r in ranks]
+        launches[shape] = per_rank
+        walls = [r["meshes"][shape]["prefill_s"] for r in ranks]
+        log(f"[spmd] {cfg.name} {shape} mesh, {SPMD_WORLD} gloo ranks on one "
+            f"card, {scheme}: f32 {SPMD_F32_LAYERS} layers B x S = "
+            f"{SPMD_F32_SHAPE}: logits vs one rank, relative max error "
+            f"{r0['f32_rel']:.3e} (limit {LM_F32_REL}); bf16 prefill "
+            f"{SPMD_SHAPE}: last logits vs one rank {r0['prefill_rel']:.3e} "
+            f"(limit {LM_BF16_REL}); kernel 3 launches per rank {per_rank}; "
+            f"prefill wall {max(walls) * 1e3:.1f} ms (slowest rank; gloo "
+            f"over host on one card: a correctness path) beside the "
+            f"one-rank prefill's {r0['local_prefill_s'] * 1e3:.1f} ms")
+        if not (r0["f32_finite"] and r0["f32_rel"] <= LM_F32_REL):
+            failures.append(f"{shape} f32 rel {r0['f32_rel']}")
+        if not (r0["prefill_finite"] and r0["prefill_rel"] <= LM_BF16_REL):
+            failures.append(f"{shape} prefill rel {r0['prefill_rel']}")
+        if any(n != cfg.n_layers for n in per_rank):
+            failures.append(f"{shape} kernel 3 launches {per_rank}")
+        for accum, got in r0.get("train", {}).items():
+            depth = SPMD_TRAIN_LAYERS or cfg.n_layers
+            m, ref = got["metrics"], got["local_metrics"]
+            errs = {k: abs(m[k] - ref[k]) / abs(ref[k])
+                    for k in ("loss", "grad_norm")}
+            micro = sorted({p for r in ranks
+                            for p in r["meshes"][shape]["train"][accum][
+                                "placements"]})
+            steps = [r["meshes"][shape]["train"][accum]["step_s"]
+                     for r in ranks]
+            log(f"[spmd] {cfg.name} bf16 AdamW train step {shape} B x S = "
+                f"{SPMD_SHAPE}, {depth} of {cfg.n_layers} layers"
+                f"{'' if depth == cfg.n_layers else ' (cut: 8 ranks on one card)'}"
+                f", accum {accum}: loss {m['loss']:.6f} vs one rank "
+                f"{ref['loss']:.6f}, grad_norm {m['grad_norm']:.6f} vs "
+                f"{ref['grad_norm']:.6f}, relative {errs} (limit "
+                f"{SPMD_TRAIN_REL}); micro-batch tokens on every rank "
+                f"{micro}; step wall {max(steps):.2f} s (slowest rank)")
+            if not all(math.isfinite(m[k]) and e <= SPMD_TRAIN_REL
+                       for k, e in errs.items()):
+                failures.append(f"train accum {accum}: {errs}")
+            if micro != ["(Shard(dim=0), Replicate())"]:
+                failures.append(f"train accum {accum}: micro-batch {micro}")
+    rec = ranks[0]["meshes"][record_mesh]["recorded"]
+    want = {"bytes_by_kind": pred["collectives"]["by_kind_bytes"],
+            "count_by_kind": pred["collectives"]["by_kind_count"],
+            "dot_flops": pred["per_device"]["hlo_flops"]}
+    log(f"[spmd] {cfg.name} bf16 prefill {SPMD_SHAPE} on {record_mesh}: rank "
+        f"0's StepRecorder {json.dumps(rec)}; dry_run on a fake "
+        f"{record_mesh} CUDA group {json.dumps(want)}")
+    if rec != want:
+        failures.append("the recorded prefill differs from the dry run")
+    seconds = time.perf_counter() - t_phase
+    log(f"[spmd] phase 17: {seconds:.2f} s ({SPMD_WORLD}-rank world "
+        f"{world_s:.1f} s)")
+    if failures:
+        raise AssertionError(f"phase 17: {failures}")
+    return {"launches": launches, "seconds": seconds, "probe": probe}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3867,6 +4293,9 @@ def main() -> int:
     # -- 16. the dry run ---------------------------------------------------
     dry = dryrun_phase(dev)
 
+    # -- 17. the sharded step on 8 ranks -----------------------------------
+    spmd_res = spmd_phase(dev)
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -3896,7 +4325,9 @@ def main() -> int:
              f"{LM_ARCH} dry-run check, train step":
                  dry["launches"]["train"],
              f"{LM_ARCH} dry-run check, prefill":
-                 dry["launches"]["prefill"]},
+                 dry["launches"]["prefill"],
+             **{f"{LM_ARCH} {SPMD_WORLD}-rank prefill on {shape}, per rank":
+                per_rank for shape, per_rank in spmd_res["launches"].items()}},
          "launches_per_train_step": {
              LM_ARCH: lm_train["train_launches"] / lm_train["steps"],
              **{f"{name} remat {'on' if r else 'off'}": v["launches"]

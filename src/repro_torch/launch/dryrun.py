@@ -62,9 +62,12 @@ __all__ = [
     "PEAK_BF16",
     "build_step",
     "dry_run",
+    "fake_placement",
     "main",
     "roofline_terms",
     "run_cell",
+    "step_fn",
+    "train_optimizer",
 ]
 
 # H100 SXM datasheet, per GPU: dense bf16 tensor-core rate, HBM3 rate,
@@ -107,6 +110,16 @@ def _place(tree, shardings, device, dtype=None):
         tree, shardings)
 
 
+def fake_placement(device):
+    """The dry run's placement for :func:`build_step`: every argument a
+    fake DTensor of its spec's shape on `device`, nothing allocated."""
+    def place(what, specs, shardings):
+        del what
+        return _place(specs, shardings, device)
+
+    return place
+
+
 def _pin(tree, shardings):
     """Redistribute each DTensor of `tree` to its sharding (the
     reference's ``out_shardings``)."""
@@ -122,23 +135,52 @@ def _pin(tree, shardings):
     return tree_map(one, tree, shardings)
 
 
-def build_step(cfg: ModelConfig, shape, mesh, scheme: ShardScheme | None
-               = None, *, device="cuda"):
-    """The cell's step as a closure over fake DTensor arguments: ``(run,
-    args)``, ``run()`` tracing one train / prefill / decode step through
-    the port's ``make_train_step`` / ``make_prefill_step`` /
-    ``make_serve_step`` and pinning what it returns as the reference's
-    ``out_shardings`` do, ``args`` the tree of its arguments.  `shape` is
-    a name of ``configs.SHAPES`` or a ``configs.ShapeCell``.  Call it
-    inside a ``FakeTensorMode`` (``dry_run`` does); the counterpart of
-    the reference's ``build_lowered``."""
+def train_optimizer(cfg: ModelConfig):
+    """The AdamW a traced train step updates with (bf16 moments past
+    1e11 parameters)."""
+    from repro_torch.optim import adamw
+
+    return adamw(3e-4, state_dtype=torch.bfloat16
+                 if cfg.n_params() > 1e11 else torch.float32)
+
+
+def step_fn(cfg: ModelConfig, kind: str, scheme: ShardScheme):
+    """The step a cell of `kind` runs: the train step (AdamW of
+    :func:`train_optimizer`, bf16 gradient compression,
+    ``scheme.accum_steps``), the prefill step or the serve step."""
     from repro_torch.models.steps import (
         make_prefill_step,
         make_serve_step,
         make_train_step,
     )
+
+    if kind == "train":
+        return make_train_step(cfg, train_optimizer(cfg),
+                               grad_compression="bf16",
+                               accum_steps=scheme.accum_steps)
+    if kind == "prefill":
+        return make_prefill_step(cfg)
+    return make_serve_step(cfg)
+
+
+def build_step(cfg: ModelConfig, shape, mesh, scheme: ShardScheme | None
+               = None, *, device="cuda", place=None, cache_len=None):
+    """The cell's step as a closure over DTensor arguments: ``(run,
+    args)``, ``run()`` running one train / prefill / decode step
+    (:func:`step_fn`) and pinning what it returns as the reference's
+    ``out_shardings`` do, ``args`` the tree of its arguments.  `shape` is
+    a name of ``configs.SHAPES`` or a ``configs.ShapeCell``.
+
+    ``place(what, specs, shardings)`` places each argument (`what` is
+    ``"params"``, ``"opt"``, ``"batch"``, ``"cache"`` or ``"token"``,
+    `specs` its ``meta`` shape specs): by default
+    :func:`fake_placement` on `device`, the dry run's, to be called
+    inside a ``FakeTensorMode``; ``launch.spmd`` places real tensors
+    through the same plans, so the real step and the traced one are one
+    program.  A decode's cache holds ``cache_len`` tokens (by default
+    the cell's seq - 1).  The counterpart of the reference's
+    ``build_lowered``."""
     from repro_torch.models.transformer import param_specs
-    from repro_torch.optim import adamw
     from repro_torch.parallel.sharding import (
         make_batch_shardings,
         make_cache_shardings,
@@ -147,25 +189,19 @@ def build_step(cfg: ModelConfig, shape, mesh, scheme: ShardScheme | None
     )
 
     scheme = scheme or default_scheme(cfg)
+    place = place or fake_placement(device)
     cell = shape if isinstance(shape, C.ShapeCell) else C.SHAPES[shape]
     specs = C.input_specs(cfg, cell)
     ps_tree = param_specs(cfg)
     p_sh = make_param_shardings(cfg, mesh, ps_tree, scheme)
-    params = _place(ps_tree, p_sh, device)
+    params = place("params", ps_tree, p_sh)
+    b_sh = make_batch_shardings(cfg, mesh, specs, scheme)
+    step = step_fn(cfg, cell.kind, scheme)
 
     if cell.kind == "train":
-        opt = adamw(3e-4, state_dtype=torch.bfloat16
-                    if cfg.n_params() > 1e11 else torch.float32)
-        step = make_train_step(cfg, opt, grad_compression="bf16",
-                               accum_steps=scheme.accum_steps)
         o_sh = make_opt_shardings(cfg, mesh, ps_tree, scheme, "adamw")
-        o_specs = opt.init(ps_tree)
-        opt_state = type(o_specs)(
-            step=_fake_dtensor((), torch.int32, o_sh.step, device),
-            inner=_place(o_specs.inner, o_sh.inner, device))
-        b_sh = make_batch_shardings(cfg, mesh, specs, scheme)
-        batch = _place(specs, b_sh, device)
-        args = (params, opt_state, batch)
+        opt_state = place("opt", train_optimizer(cfg).init(ps_tree), o_sh)
+        args = (params, opt_state, place("batch", specs, b_sh))
 
         def run():
             p, o, metrics = step(*args)
@@ -174,13 +210,11 @@ def build_step(cfg: ModelConfig, shape, mesh, scheme: ShardScheme | None
         return run, args
 
     if cell.kind == "prefill":
-        prefill = make_prefill_step(cfg)
-        b_sh = make_batch_shardings(cfg, mesh, specs, scheme)
-        batch = _place(specs, b_sh, device)
+        batch = place("batch", specs, b_sh)
         args = (params, batch["tokens"], batch.get("frontend_embeds"))
 
         def run():
-            logits, cache = prefill(*args)
+            logits, cache = step(*args)
             # pin the returned cache as the reference does: heads over
             # 'model' where they divide, batch over the data axes, never
             # head_dim
@@ -190,18 +224,15 @@ def build_step(cfg: ModelConfig, shape, mesh, scheme: ShardScheme | None
 
         return run, args
 
-    serve = make_serve_step(cfg)
-    b_sh = make_batch_shardings(cfg, mesh, specs, scheme)
     c_sh = {k: v for k, v in b_sh["cache"].items() if k != "len"}
-    cache = _place({k: specs["cache"][k] for k in c_sh}, c_sh, device)
+    cache = place("cache", {k: specs["cache"][k] for k in c_sh}, c_sh)
     # the new token lands in the last slot of the seq-long cache
-    cache["len"] = cell.seq - 1
-    token = _fake_dtensor(specs["token"].shape, specs["token"].dtype,
-                          b_sh["token"], device)
+    cache["len"] = cell.seq - 1 if cache_len is None else cache_len
+    token = place("token", specs["token"], b_sh["token"])
     args = (params, cache, token)
 
     def run():
-        logits, new_cache = serve(*args)
+        logits, new_cache = step(*args)
         return logits, _pin({k: v for k, v in new_cache.items()
                              if k != "len"}, c_sh)
 
@@ -225,16 +256,14 @@ def dry_run(cfg: ModelConfig, shape, mesh, scheme: ShardScheme | None =
     ``memory``, ``collectives`` and ``per_device``.  Nothing is
     allocated and nothing is launched."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor.experimental import implicit_replication
 
-    from repro_torch.parallel.constrain import scheme_context, use_mesh
+    from repro_torch.parallel.constrain import on_mesh
 
     scheme = scheme or default_scheme(cfg)
     device = torch.device(device)
     rec = StepRecorder()
     t0 = time.perf_counter()
-    with FakeTensorMode(allow_non_fake_inputs=True), use_mesh(mesh), \
-            scheme_context(scheme), implicit_replication():
+    with FakeTensorMode(allow_non_fake_inputs=True), on_mesh(mesh, scheme):
         run, args = build_step(cfg, shape, mesh, scheme, device=device)
         arg_bytes = rec.track(args)
         arg_keys = _storage_keys(args)

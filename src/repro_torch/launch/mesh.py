@@ -8,15 +8,22 @@ initialised process group (one rank per device);
 at production size on one card.  :func:`fake_process_group` gives a
 world of any size in one process whose collectives move nothing, so
 ``make_production_mesh`` builds a real 256- or 512-rank DeviceMesh for
-``launch.dryrun`` to trace a sharded step on.
+``launch.dryrun`` to trace a sharded step on.  :func:`spawn_world`
+gives a real world of N processes, whose collectives move data: the
+counterpart of the JAX package's ``--xla_force_host_platform_device_
+count=8`` subprocess tests.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import queue
 import shutil
 import tempfile
+import time
+import traceback
+from datetime import timedelta
 
 from repro_torch.parallel.sharding import AbstractMesh
 
@@ -28,6 +35,7 @@ __all__ = [
     "make_debug_mesh",
     "make_production_mesh",
     "single_process_group",
+    "spawn_world",
 ]
 
 # the JAX package's production meshes: 16 x 16 per pod, two pods
@@ -114,3 +122,109 @@ def fake_process_group(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+def _rank_main(rank, world_size, backend, device_type, store_path,
+               timeout, results, fn, args):
+    """One rank of :func:`spawn_world`: join the group, run
+    ``fn(rank, *args)``, put ``(rank, ok, result or traceback)`` on
+    `results`.  A rank that fails reports before it leaves the group:
+    the other ranks see it go only when it exits, after its report."""
+    try:
+        import faulthandler
+
+        import torch
+        import torch.distributed as dist
+
+        # a crash in native code (a collective, a kernel) prints this
+        # rank's Python stack before the process dies
+        faulthandler.enable()
+        if device_type == "cpu":
+            torch.set_num_threads(1)
+        else:
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        store = dist.FileStore(store_path, world_size)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world_size,
+                                timeout=timedelta(seconds=timeout))
+        out = fn(rank, *args)
+    except BaseException:  # reported to the parent, which raises it
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    dist.destroy_process_group()
+    results.put((rank, True, out))
+
+
+def spawn_world(world_size: int, fn, *args, backend: str = "gloo",
+                device_type: str = "cpu", timeout: float = 300.0) -> list:
+    """Run ``fn(rank, *args)`` on each rank of a world of `world_size`
+    processes and return what each rank returned, in rank order.
+
+    The processes start by ``spawn`` (never ``fork``: the card needs
+    it), so `fn`, `args` and the results must pickle, and `fn` must be
+    importable by name.  The rendezvous is a ``FileStore`` in a fresh
+    temporary directory: no network, no port.  Each rank runs one CPU
+    thread (``device_type="cpu"``) or takes card ``rank % count``,
+    initialises the process group (`backend`; ``gloo`` also carries CUDA
+    tensors, through host memory), runs `fn`, and destroys the group.
+
+    When a rank raises, this raises ``RuntimeError`` with that rank's
+    traceback; when a rank dies without a result, or `timeout` seconds
+    pass, it raises too.  Either way every rank still running is
+    terminated (then killed), so no rank is left blocked in a
+    collective."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    root = tempfile.mkdtemp(prefix="repro_torch_world_")
+    results = ctx.Queue()
+    procs = [
+        ctx.Process(target=_rank_main, daemon=True, args=(
+            rank, world_size, backend, device_type,
+            os.path.join(root, "store"), timeout, results, fn, args))
+        for rank in range(world_size)
+    ]
+    got: dict = {}
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < world_size:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"spawn_world: {world_size - len(got)} of {world_size} "
+                    f"ranks gave no result within {timeout:g} s")
+            try:
+                rank, ok, out = results.get(timeout=min(left, 0.5))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead:
+                    # a last look: its result may be in flight
+                    try:
+                        rank, ok, out = results.get(timeout=2.0)
+                    except queue.Empty:
+                        raise RuntimeError(
+                            f"spawn_world: rank {dead[0]} exited with code "
+                            f"{procs[dead[0]].exitcode} and no result"
+                        ) from None
+                else:
+                    continue
+            if not ok:
+                raise RuntimeError(f"spawn_world: rank {rank} raised:\n{out}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.join(timeout=5.0 if len(got) == world_size else 0.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+        results.cancel_join_thread()
+        shutil.rmtree(root, ignore_errors=True)
+    return [got[r] for r in range(world_size)]

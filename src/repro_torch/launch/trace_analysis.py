@@ -85,9 +85,13 @@ _KINDS = {
 }
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
 
+# the functional collectives' own bookkeeping, no collective: the wait,
+# and (on a real process group, where nothing traces) the wrap of a
+# result into an AsyncCollectiveTensor
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
 # ops that produce no traffic: metadata, aliases and waits
-_FREE_OPS = {
-    "wait_tensor", "detach", "alias", "lift_fresh", "lift_fresh_copy",
+_FREE_OPS = _NOT_COLLECTIVES | {
+    "detach", "alias", "lift_fresh", "lift_fresh_copy",
     "_local_scalar_dense",
 }
 # the metadata queries FlopCounterMode declines too
@@ -108,7 +112,7 @@ def collective_kind(func) -> str | None:
     name = func._overloadpacket.__name__
     if name in _KINDS:
         return _KINDS[name]
-    return None if name == "wait_tensor" else name
+    return None if name in _NOT_COLLECTIVES else name
 
 
 def ring_bytes(kind: str, out_bytes: float, group: int) -> float:

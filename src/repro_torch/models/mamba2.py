@@ -19,7 +19,12 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import rms_norm
-from repro_torch.parallel.constrain import constrain, constrain_ssd, split_dim
+from repro_torch.parallel.constrain import (
+    constrain,
+    constrain_ssd,
+    gather_data_axes,
+    split_dim,
+)
 
 
 def _repeat_groups(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -170,10 +175,12 @@ def mamba_block(
     G, N = s.n_groups, s.d_state
     gn = G * N
 
-    z = x @ p["in_z"]                  # (B,S,din)
-    xi_raw = x @ p["in_x"]             # (B,S,din)
-    bc_raw = x @ p["in_bc"]            # (B,S,2gn)
-    dt = x @ p["in_dt"]                # (B,S,H)
+    # under ZeRO-3 the in-projections are gathered over the data axes
+    # first, so the heads stay split over 'model' only
+    z = x @ gather_data_axes(p["in_z"])          # (B,S,din)
+    xi_raw = x @ gather_data_axes(p["in_x"])     # (B,S,din)
+    bc_raw = x @ gather_data_axes(p["in_bc"])    # (B,S,2gn)
+    dt = x @ gather_data_axes(p["in_dt"])        # (B,S,H)
     A = -torch.exp(p["A_log"].float())
 
     if cache is None:

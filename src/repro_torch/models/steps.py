@@ -5,10 +5,11 @@
 The train step differentiates the dict-tree params with
 ``torch.autograd.grad`` over their leaves (no ``nn.Parameter``), as
 ``jax.value_and_grad`` does; attention's gradient comes from
-``kernels.flash_attention.FlashAttentionFn``.  One card, no mesh: the
-reference's gradient all-reduce is implicit in its shardings, so
-``grad_compression="bf16"`` is the same round trip through bfloat16
-here, with nothing between the two casts.
+``kernels.flash_attention.FlashAttentionFn``.  The reference's gradient
+all-reduce is implicit in its shardings, so ``grad_compression="bf16"``
+is the same round trip through bfloat16 here, of the summed gradient:
+on a mesh (``launch.spmd``) a DTensor gradient's pending sum over the
+ranks is reduced before the cast.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import forward, init_cache
 from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.parallel.constrain import pin_batch, reduce_partial
 from repro_torch.tree import flatten, tree_map, unflatten
 
 MOE_AUX_WEIGHT = 0.01
@@ -103,10 +105,13 @@ def make_train_step(
                 lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             lsum = torch.zeros(3, dtype=torch.float32, device=tokens.device)
             for i in range(accum_steps):
+                # a slice of a batch-sharded DTensor comes back
+                # replicated: pin each micro-batch to the batch sharding
+                # (the identity without a mesh)
                 rows = slice(i * mb, (i + 1) * mb)
                 loss, ce, aux, g = grads_of(
-                    params, tokens[rows], labels[rows],
-                    None if fe is None else fe[rows])
+                    params, pin_batch(tokens[rows]), pin_batch(labels[rows]),
+                    None if fe is None else pin_batch(fe[rows]))
                 gsum = tree_map(torch.add, gsum, g)
                 lsum = lsum + torch.stack([loss, ce, aux])
             grads = tree_map(lambda g: g / accum_steps, gsum)
@@ -115,8 +120,12 @@ def make_train_step(
             loss, ce, aux, grads = grads_of(params, tokens, labels, fe)
 
         if grad_compression == "bf16":
+            # the rounding of each summed gradient, as in the reference;
+            # on a mesh a gradient may still be a pending sum of the
+            # ranks' parts (the identity on plain tensors)
             grads = tree_map(
-                lambda g: g.to(torch.bfloat16).to(torch.float32), grads)
+                lambda g: reduce_partial(g).to(torch.bfloat16).to(
+                    torch.float32), grads)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         return new_params, new_opt, {

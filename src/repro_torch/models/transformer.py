@@ -35,6 +35,7 @@ from repro_torch.models.moe import moe_ffn
 from repro_torch.parallel.constrain import (
     attn_kv_parallel_enabled,
     constrain_kv,
+    merge_dims,
     pin_batch,
     sp_residual_enabled,
     split_dim,
@@ -376,8 +377,7 @@ def attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
             q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
             remat_chunks=cfg.remat,
         )
-    B, S = x.shape[:2]
-    out = o.reshape(B, S, -1) @ p["wo"]
+    out = merge_dims(o, 2) @ p["wo"]
     return out, (constrain_kv(k), constrain_kv(v))
 
 

@@ -20,6 +20,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
+import torch
+
 from repro_torch.parallel.sharding import (
     NamedSharding,
     PartitionSpec as P,
@@ -34,8 +36,12 @@ __all__ = [
     "constrain",
     "constrain_kv",
     "constrain_ssd",
+    "gather_data_axes",
+    "merge_dims",
+    "on_mesh",
     "pick_batch_axes",
     "pin_batch",
+    "reduce_partial",
     "resolved_spec",
     "scheme_context",
     "sp_residual_enabled",
@@ -93,6 +99,20 @@ def scheme_context(scheme):
         _SP_RESIDUAL.reset(t2)
         _ATTN_KV_PARALLEL.reset(t3)
         _DECODE_REPLICATE.reset(t4)
+
+
+@contextlib.contextmanager
+def on_mesh(mesh, scheme):
+    """The context of a sharded step: `mesh` ambient (:func:`use_mesh`),
+    `scheme`'s model-internal knobs (:func:`scheme_context`), and
+    DTensor's ``implicit_replication``, so that a plain tensor the model
+    makes (an ``arange``, a mask, a zero) meets a DTensor as a
+    replicated one.  The counterpart of the reference's ``with mesh:``
+    around a jitted sharded step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with use_mesh(mesh), scheme_context(scheme), implicit_replication():
+        yield mesh
 
 
 def sp_residual_enabled() -> bool:
@@ -248,6 +268,76 @@ def split_dim(x, dim: int, parts: int, size: int):
                 Replicate() if i in on_dim else p
                 for i, p in enumerate(x.placements)))
     return x.reshape(*x.shape[:dim], parts, size, *x.shape[dim + 1:])
+
+
+def gather_data_axes(w):
+    """A weight as its product uses it under ZeRO-3: a DTensor whose
+    dims the data axes ('pod', 'data') shard is all-gathered over them,
+    'model' kept, as GSPMD gathers an FSDP-sharded weight before its
+    dot.  DTensor would instead keep the weight's ('model', 'data')
+    split on the product's output dim and gather the batch, and a dim
+    split over two mesh dims then fails the head reshapes of the SSD
+    (``_StridedShard`` cannot be unflattened).  Plain tensors, and
+    DTensors no data axis shards, are returned as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names or ()
+    keep = tuple(Replicate() if names[i] in ("pod", "data") else p
+                 for i, p in enumerate(w.placements))
+    if keep == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, keep)
+
+
+def reduce_partial(x):
+    """A DTensor whose value is a pending sum over some mesh dims
+    (``Partial`` placements) as that sum, replicated over them (an
+    all-reduce); plain tensors, and DTensors with nothing pending, as
+    they are.  GSPMD reduces a product's partial sums before any other
+    op reads them; DTensor lets a dtype cast through, which rounds each
+    rank's partial sum instead of the sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if isinstance(p, Partial) else p for p in x.placements))
+
+
+class _GradAsInput(torch.autograd.Function):
+    """The identity, whose backward brings the gradient to the input's
+    own placements (a DTensor)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements)
+
+
+def merge_dims(x, dim: int):
+    """``x`` with dims `dim` and `dim` + 1 merged into one, as
+    ``reshape`` does (the counterpart of :func:`split_dim`).  On a
+    DTensor the gradient of the merged tensor is first brought back to
+    ``x``'s own placements: a product that shards its contracting dim
+    (the attention's ``wo`` over 'model') hands back a gradient split on
+    the merged dim, and splitting that into heads the mesh dim does not
+    divide (qwen2's 14 over 4) is a view torch 2.11's DTensor refuses
+    (a ``view``).  On a plain tensor this is the reshape."""
+    from torch.distributed.tensor import DTensor
+
+    dim = dim % x.ndim
+    merged = x.reshape(*x.shape[:dim], -1, *x.shape[dim + 2:])
+    if isinstance(x, DTensor) and torch.is_grad_enabled() \
+            and x.requires_grad:
+        merged = _GradAsInput.apply(merged)
+    return merged
 
 
 def constrain_kv(x):

@@ -36,6 +36,13 @@ def remesh_state(
 ) -> Any:
     """Reshard a params-like tree of tensors or DTensors onto `new_mesh`
     (a ``torch.distributed.device_mesh.DeviceMesh``): every leaf a
-    DTensor placed by ``make_param_shardings`` against the new mesh."""
+    DTensor placed by ``make_param_shardings`` against the new mesh.
+
+    A DTensor leaf is first gathered whole on its old mesh
+    (``full_tensor()``, a collective), so every rank of the old mesh
+    calls this, those the new mesh leaves out too (losing ranks 4-7 of
+    a 2 x 4 mesh for a 1 x 4 one over ranks 0-3).  Such a rank gets
+    DTensors of the new mesh whose local tensors are empty (``(0,)``):
+    it holds no part of the state and runs nothing on the new mesh."""
     shardings = make_param_shardings(cfg, new_mesh, state, scheme)
     return distribute(state, shardings)

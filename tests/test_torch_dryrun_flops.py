@@ -114,3 +114,67 @@ def test_head_counts_a_wide_model_axis_does_not_divide(arch, kind):
                       device="cpu")
     assert r["per_device"]["hlo_flops"] > 0
     assert r["memory"]["peak_bytes_per_device"] > 0
+
+
+def _loss_head(monkeypatch, cfg, scheme, cell) -> tuple:
+    """The matmul FLOPs a device spends in the forward's loss head
+    (``transformer._unembed``) over one dry-run train step, the
+    recorder's count read before and after each call, and the
+    placements of the tokens each micro-step's ``loss_fn`` gets."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    from repro_torch.launch.trace_analysis import StepRecorder
+
+    spent, seen = [], []
+    unembed, loss_fn = T_T._unembed, T_S.loss_fn
+
+    def counted(*args, **kwargs):
+        rec = next(m for m in _get_current_dispatch_mode_stack()
+                   if isinstance(m, StepRecorder))
+        before = rec.dot_flops
+        out = unembed(*args, **kwargs)
+        spent.append(rec.dot_flops - before)
+        return out
+
+    def spy(cfg_, params, tokens, *args, **kwargs):
+        seen.append(tuple(tokens.placements))
+        return loss_fn(cfg_, params, tokens, *args, **kwargs)
+
+    monkeypatch.setattr(T_T, "_unembed", counted)
+    monkeypatch.setattr(T_S, "loss_fn", spy)
+    with fake_process_group(8):
+        mesh = make_debug_mesh((2, 4), ("data", "model"), device_type="cpu")
+        D.dry_run(cfg, cell, mesh, scheme, device="cpu")
+    monkeypatch.setattr(T_T, "_unembed", unembed)
+    monkeypatch.setattr(T_S, "loss_fn", loss_fn)
+    assert len(spent) == len(seen) == scheme.accum_steps
+    return sum(spent), set(seen)
+
+
+@pytest.mark.parametrize("batch_over_model", [False, True])
+def test_accumulated_micro_batches_keep_the_loss_head_sharded(
+        monkeypatch, batch_over_model):
+    """``accum_steps=4`` on a fake (2, 4) group: each micro-batch reaches
+    ``loss_fn`` sharded as the whole batch is (``pin_batch`` on each
+    slice: a slice of a batch-sharded DTensor comes back replicated),
+    and the loss head costs a device what it costs at ``accum_steps=1``.
+    (Its matmul FLOPs were equal before the pin too: the residual pin
+    after the embedding re-shards the rows.  What the replicated slice
+    cost was memory: deepseek's ``ep+accum4`` train_4k cell held a
+    replicated micro-batch's f32 logits.)"""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel.sharding import ShardScheme
+
+    cfg = T_C.get_smoke("olmo_1b")
+    cell = T_C.ShapeCell("t", "train", 16, 32)
+    got = {
+        n: _loss_head(monkeypatch, cfg, ShardScheme(
+            tp=True, fsdp="zero1", batch_over_model=batch_over_model,
+            accum_steps=n), cell)
+        for n in (1, 4)}
+    rows = (Shard(0), Shard(0)) if batch_over_model else (Shard(0),
+                                                          Replicate())
+    assert got[1][1] == got[4][1] == {rows}
+    assert got[1][0] > 0
+    assert got[4][0] == got[1][0]
