@@ -255,9 +255,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    a correctness path, no multi-card or NVLink claim.  First a probe of
    the functional collectives DTensor issues, on CUDA tensors in 2-rank
    worlds: gloo's ``all_gather_into_tensor`` kills its processes
-   (SIGSEGV) on the card's torch, so the ranks run every all-gather as
-   an ``all_to_all_single`` (``all_gather_through_all_to_all``), which
-   the probe holds too.  Then qwen2-0.5B at full width under
+   (SIGSEGV) on the card's torch, so ``spawn_world`` has every gloo rank
+   on CUDA run the all-gather as an ``all_to_all_single``
+   (``launch.mesh.all_gather_through_all_to_all``), which the probe
+   holds too (gloo's own is probed in a world spawned without it).
+   Then qwen2-0.5B at full width under
    ``ShardScheme(tp=True, fsdp="zero1")`` on a (2, 4) and a (4, 2)
    ('data', 'model') mesh (14 heads over 4 do not divide, over 2 they
    do), weights from phase 4b's seeded generator on every rank: the f32
@@ -269,10 +271,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    at ``accum_steps`` 1 and 4 (``SPMD_TRAIN_LAYERS``: the depth cut
    the card's memory forces, printed), loss and grad_norm against the
    one-rank step (``SPMD_TRAIN_REL``), each micro-batch's tokens
-   ``Shard(0)`` over 'data' on every rank; rank 0's ``StepRecorder``
+   ``Shard(0)`` over 'data' on every rank, and the accum-1 step again
+   with ``attn_kv_parallel`` (the context-parallel attention's backward
+   on sharded tensors, held to the same one-rank step); rank 0's
+   ``StepRecorder
    over the (2, 4) prefill equal, collective by collective and in
    ``dot_flops``, to ``launch.dryrun.dry_run``'s on a fake (2, 4) CUDA
    group.
+18. the examples (``examples_phase``): each ``examples/torch_*.py``
+   imported by path and run in-process through ``main([...])`` at its
+   own defaults, in a temporary working directory.  quickstart (train,
+   pack, profile, greedy and DP mappings, the mapped model and 8 served
+   answers exact) and serve_mapped (512 answers exact, p50 / p99): the
+   measured profile must launch kernel 1, and whenever the DP mapping
+   places a conv or fc layer on the card kernel 1 or 2 must launch
+   while the mapped model runs and serves; serve_fleet (two tenants,
+   every answer exact, ``rejected == shed``): kernel 1 must launch while
+   serving whenever a tenant's plan places a conv or fc layer on
+   ``XYZ``; train_lm at full width (qwen2-0.5B, B 8 x S 128) for 60
+   steps, then again to 80 on the same checkpoint directory: finite
+   losses, the last below the first, the second run resumed at 60 and
+   ran 20 steps, kernel 3 twice per layer a step; hep_shard_demo
+   (olmo-1b at 2 layers, train_4k) on a fake (2, 4) CUDA group, every
+   trial printed, then its chosen scheme's bf16 AdamW step through
+   ``launch.spmd.run_step`` on 8 gloo ranks that share the card (their
+   all-gathers through ``spawn_world``'s routing) at B 8 x S 512 (the
+   cut printed): loss and grad_norm within ``SPMD_TRAIN_REL`` of one
+   rank's step, kernel 3 on every rank, rank 0's collectives and FLOPs
+   equal to ``dry_run``'s at the cut shape on a fake (2, 4) CUDA group.
+   Each example's wall and the phase's are printed.
 
 Every traced window (the LM prefill, the three traced serving steps)
 reads the launch counts before and after it; a trace that shows fewer
@@ -295,7 +322,9 @@ context-parallel prefill (``flash_attention_cuda`` with the
 log-sum-exp, once per layer and KV part), phase 16's real train step
 and prefill (``flash_attention_cuda``, twice and once per layer) and
 phase 17's 8-rank prefills (``flash_attention_cuda`` once per layer on
-each rank, counted in each rank's process).  The last
+each rank, counted in each rank's process) and context-parallel train
+step (with the log-sum-exp), and each example of phase 18 (run in this
+process; the demo's real step counted in each rank's).  The last
 lines are the device line, one JSON object with each kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -509,11 +538,25 @@ SPMD_TRAIN_LAYERS = 12
 SPMD_TRAIN_REL = 1e-2
 SPMD_TIMEOUT_S = 900.0
 # gloo's own all-gather, probed in a world of its own (it crashes), and
-# the all-gather phase 17's ranks run (all_gather_through_all_to_all)
+# the all-gather spawn_world's gloo ranks on CUDA run
+# (launch.mesh.all_gather_through_all_to_all)
 SPMD_RAW_ALL_GATHER = "all_gather_into_tensor"
 SPMD_ROUTED = "all_gather_into_tensor through all_to_all_single"
 SPMD_PROBED = ("all_reduce", "reduce_scatter_tensor", "all_to_all_single",
                SPMD_ROUTED)
+
+# phase 18: the five examples/torch_*.py entry points, run in-process at
+# their own defaults (train_lm with --full, twice: 60 steps, then a
+# resume to 80); the HEP-Shard demo's chosen scheme then takes one real
+# bf16 AdamW step on SPMD_WORLD gloo ranks that share the card, its
+# train_4k cell (256 x 4,096 tokens) cut to B x S = EXAMPLE_DEMO_CUT
+EXAMPLES = ("quickstart", "serve_mapped", "serve_fleet", "train_lm",
+            "hep_shard_demo")
+EXAMPLE_TRAIN_ARGS = ("--full", "--arch", LM_ARCH, "--batch", "8", "--seq",
+                      "128")
+EXAMPLE_TRAIN_STEPS = (60, 80)
+EXAMPLE_DEMO_CUT = (8, 512)
+EXAMPLE_DEMO_TIMEOUT_S = 600.0
 
 # adaptive serving (phase 9): requests per burst, calibration stops after
 # this many steps without a new journal entry (at most CALIBRATE_MAX
@@ -2926,38 +2969,16 @@ def dryrun_phase(dev) -> dict:
     return out
 
 
-def all_gather_through_all_to_all():
-    """gloo's ``all_gather_into_tensor`` on CUDA tensors kills the
-    process (SIGSEGV in the card's torch 2.11; phase 17's probe shows
-    it), where its ``all_to_all_single`` runs.  This makes the
-    functional all-gather's CUDA kernel an ``all_to_all_single`` of the
-    input repeated once per rank: every rank receives each rank's input,
-    the same bytes an all-gather moves, on the same CUDA tensors.  For
-    phase 17's rank processes, whose every collective is gloo's; a
-    ``StepRecorder`` still sees the all-gather DTensor issued.  Returns
-    the ``torch.library.Library`` that holds the kernel (it lasts as
-    long as the object)."""
-    import torch
-
-    def all_gather_into_tensor(input, group_size, group_name):
-        x = input.contiguous()
-        rows = [x.shape[0]] * group_size
-        return torch.ops._c10d_functional.all_to_all_single(
-            x.repeat(group_size, *([1] * (x.dim() - 1))), rows, rows,
-            group_name)
-
-    lib = torch.library.Library("_c10d_functional", "IMPL")
-    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
-    return lib
-
-
 def gloo_probe_rank(rank: int, names: tuple) -> dict:
     """One rank of the gloo-on-CUDA probe: each functional collective of
     `names` (the form DTensor issues; ``SPMD_ROUTED`` is the all-gather
-    through :func:`all_gather_through_all_to_all`) on a CUDA tensor of
-    2 x world x 4 floats, held to what it must give.  Returns {name: "ok" or the
-    refusal's first line}: the refusals are what the probe is for, and a
-    refusal is an argument check that each rank makes alike."""
+    through ``launch.mesh.all_gather_through_all_to_all``, which
+    ``spawn_world`` installs in a gloo rank on CUDA, and
+    ``SPMD_RAW_ALL_GATHER`` gloo's own, in a world spawned without it)
+    on a CUDA tensor of 2 x world x 4 floats, held to what it must give.
+    Returns {name: "ok" or the refusal's first line}: the refusals are
+    what the probe is for, and a refusal is an argument check that each
+    rank makes alike."""
     import torch
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
@@ -2969,8 +2990,6 @@ def gloo_probe_rank(rank: int, names: tuple) -> dict:
     every = [x - rank + r for r in range(n)]      # each rank's x
     out = {}
     for name in names:
-        routed = all_gather_through_all_to_all() if name == SPMD_ROUTED \
-            else None
         try:
             if name in (SPMD_RAW_ALL_GATHER, SPMD_ROUTED):
                 got = funcol.all_gather_tensor(x, 0, group)
@@ -2989,8 +3008,6 @@ def gloo_probe_rank(rank: int, names: tuple) -> dict:
         except (RuntimeError, ValueError, NotImplementedError) as e:
             out[name] = f"refused: {str(e).splitlines()[0][:160]}"
             continue
-        finally:
-            del routed
         out[name] = ("ok" if got.is_cuda and torch.equal(got.cpu(),
                                                          want.cpu())
                      else f"wrong values on {got.device}")
@@ -3010,7 +3027,9 @@ def spmd_rank(rank: int, plan: dict) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (
+        flash_attention_cuda, launch_counts, reset_launch_counts,
+    )
     from repro_torch.launch import spmd
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.trace_analysis import StepRecorder
@@ -3023,10 +3042,9 @@ def spmd_rank(rank: int, plan: dict) -> dict:
     dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
            else torch.device("cpu"))
     # what the steps need of gloo on CUDA tensors, probed in this world
-    # (the override is installed after: the probe installs its own)
+    # (its all-gather through spawn_world's all_to_all_single)
     out = {"rank": rank, "meshes": {},
            "probe": gloo_probe_rank(rank, plan["probe"]) if cuda else {}}
-    routed = all_gather_through_all_to_all() if cuda else None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = plan["cfg"]
@@ -3160,10 +3178,29 @@ def spmd_rank(rank: int, plan: dict) -> dict:
                                             for k, v in ref.items()}
                 res["train"][accum] = got
                 progress(f"{shape} one-rank train step, accum {accum}")
+            if plan.get("kvpar"):
+                # the context-parallel attention's backward on sharded
+                # tensors; held to the one-rank step of accum 1
+                kscheme = ShardScheme(**plan["scheme"], attn_kv_parallel=True)
+                run, _ = spmd.sharded_step(tcfg, "train", mesh, kscheme,
+                                           tparams, tbatch)
+                sync()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                with on_mesh(mesh, kscheme):
+                    _, _, metrics = run()
+                sync()
+                res["kvpar"] = {
+                    "step_s": time.perf_counter() - t0,
+                    "lse_launches": flash_attention_cuda.lse_launches
+                    if cuda else 0,
+                    "metrics": {k: float(v) for k, v in
+                                spmd.full_tensors(metrics).items()}}
+                del run
+                progress(f"{shape} context-parallel train step")
             del tparams
         del params, batch
         out["meshes"][tuple(shape)] = res
-    del routed
     return out
 
 
@@ -3178,10 +3215,14 @@ def spmd_phase(dev) -> dict:
     ``LM_BF16_REL``, kernel 3 once per layer on every rank; on
     ``SPMD_TRAIN_MESH`` the bf16 AdamW step per ``SPMD_TRAIN_ACCUM``
     (loss and grad_norm within ``SPMD_TRAIN_REL``, each micro-batch
-    ``Shard(0)`` over 'data'); rank 0's recorded prefill collectives and
-    FLOPs equal to ``dry_run``'s on a fake (2, 4) CUDA group.  Returns
-    {"launches": {mesh: per-rank kernel 3 launches}, "seconds": wall,
-    "probe": {collective: what gloo did with it}}."""
+    ``Shard(0)`` over 'data'), and once more at accum 1 with
+    ``attn_kv_parallel`` (kernel 3 with the log-sum-exp on every rank,
+    held to the one-rank step of accum 1); rank 0's recorded prefill
+    collectives and FLOPs equal to ``dry_run``'s on a fake (2, 4) CUDA
+    group.  Returns {"launches": {mesh: per-rank kernel 3 launches},
+    "kvpar_lse": {mesh: per-rank launches of the context-parallel
+    step}, "seconds": wall, "probe": {collective: what gloo did with
+    it}}."""
     import gc
 
     import torch
@@ -3207,7 +3248,8 @@ def spmd_phase(dev) -> dict:
     # steps use are probed in the ranks' world (spmd_rank)
     try:
         got = spawn_world(2, gloo_probe_rank, (SPMD_RAW_ALL_GATHER,),
-                          backend="gloo", device_type="cuda", timeout=120.0)
+                          backend="gloo", device_type="cuda", timeout=120.0,
+                          route_all_gather=False)
         raw = sorted({r[SPMD_RAW_ALL_GATHER] for r in got})
     except RuntimeError as e:
         raw = [f"crashed: {str(e).splitlines()[0][:160]}"]
@@ -3226,7 +3268,7 @@ def spmd_phase(dev) -> dict:
             "scheme": SPMD_SCHEME, "f32_layers": SPMD_F32_LAYERS,
             "f32_shape": SPMD_F32_SHAPE, "shape": SPMD_SHAPE,
             "record_mesh": record_mesh, "train_mesh": SPMD_TRAIN_MESH,
-            "probe": SPMD_PROBED,
+            "probe": SPMD_PROBED, "kvpar": True,
             "accum": SPMD_TRAIN_ACCUM, "train_layers": SPMD_TRAIN_LAYERS}
     t0 = time.perf_counter()
     ranks = spawn_world(SPMD_WORLD, spmd_rank, plan, backend="gloo",
@@ -3235,7 +3277,7 @@ def spmd_phase(dev) -> dict:
     probe = {k: sorted({r["probe"][k] for r in ranks}) for k in SPMD_PROBED}
     log(f"[spmd] gloo on CUDA tensors, {SPMD_WORLD} ranks (one card), the "
         f"functional collectives DTensor issues: {json.dumps(probe)}")
-    launches = {}
+    launches, kvpar_lse = {}, {}
     failures = [f"gloo {k}: {v}" for k, v in probe.items() if v != ["ok"]]
     probe[SPMD_RAW_ALL_GATHER] = raw
     for shape in SPMD_MESHES:
@@ -3281,6 +3323,28 @@ def spmd_phase(dev) -> dict:
                 failures.append(f"train accum {accum}: {errs}")
             if micro != ["(Shard(dim=0), Replicate())"]:
                 failures.append(f"train accum {accum}: micro-batch {micro}")
+        if "kvpar" in r0:
+            depth = SPMD_TRAIN_LAYERS or cfg.n_layers
+            m, ref = r0["kvpar"]["metrics"], r0["train"][1]["local_metrics"]
+            errs = {k: abs(m[k] - ref[k]) / abs(ref[k])
+                    for k in ("loss", "grad_norm")}
+            lse = [r["meshes"][shape]["kvpar"]["lse_launches"] for r in ranks]
+            kvpar_lse[shape] = lse
+            steps = [r["meshes"][shape]["kvpar"]["step_s"] for r in ranks]
+            log(f"[spmd] {cfg.name} bf16 AdamW train step {shape} B x S = "
+                f"{SPMD_SHAPE}, {depth} of {cfg.n_layers} layers, "
+                f"attn_kv_parallel ({KV_PARTS} KV parts): loss "
+                f"{m['loss']:.6f} vs one rank {ref['loss']:.6f}, grad_norm "
+                f"{m['grad_norm']:.6f} vs {ref['grad_norm']:.6f}, relative "
+                f"{errs} (limit {SPMD_TRAIN_REL}); kernel 3 with the "
+                f"log-sum-exp per rank {lse}; step wall {max(steps):.2f} s "
+                f"(slowest rank)")
+            if not all(math.isfinite(m[k]) and e <= SPMD_TRAIN_REL
+                       for k, e in errs.items()):
+                failures.append(f"context-parallel train step: {errs}")
+            if min(lse) == 0:
+                failures.append(f"context-parallel train step: kernel 3 "
+                                f"with the log-sum-exp per rank {lse}")
     rec = ranks[0]["meshes"][record_mesh]["recorded"]
     want = {"bytes_by_kind": pred["collectives"]["by_kind_bytes"],
             "count_by_kind": pred["collectives"]["by_kind_count"],
@@ -3295,7 +3359,317 @@ def spmd_phase(dev) -> dict:
         f"{world_s:.1f} s)")
     if failures:
         raise AssertionError(f"phase 17: {failures}")
-    return {"launches": launches, "seconds": seconds, "probe": probe}
+    return {"launches": launches, "kvpar_lse": kvpar_lse,
+            "seconds": seconds, "probe": probe}
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (by path: ``examples/``
+    is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_gemm_layers(config) -> list:
+    """The conv and fc layers `config` places on the card: the layers
+    that launch kernel 1 (or kernel 2, in a fused span)."""
+    from repro_torch.core.parallel_config import is_host_config
+    from repro_torch.core.plan import kind_of_label
+
+    return [label for label, c in zip(config.layer_labels,
+                                      config.layer_configs)
+            if kind_of_label(label) in ("conv", "fc")
+            and not is_host_config(c)]
+
+
+def demo_rank(rank: int, plan: dict) -> dict:
+    """One rank of phase 18's real step of the HEP-Shard demo's chosen
+    scheme: ``launch.spmd.run_step`` of one bf16 AdamW train step of
+    ``plan["cfg"]`` at ``plan["shape"]`` on a ``plan["mesh"]`` mesh,
+    rank 0's under a ``StepRecorder``; this rank's kernel 3 launches
+    and step wall; rank 0 also runs the one-rank step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.trace_analysis import StepRecorder
+    from repro_torch.models import transformer as lm
+    from repro_torch.parallel.sharding import ShardScheme
+
+    cuda = plan["device_type"] == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = plan["cfg"]
+    scheme = ShardScheme(**plan["scheme"])
+    mesh = make_debug_mesh(plan["mesh"], ("data", "model"),
+                           plan["device_type"])
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, plan["shape"], dtype=np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    rec = StepRecorder() if rank == 0 else None
+    dist.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, metrics = spmd.run_step(cfg, "train", mesh, scheme, params, batch,
+                                  recorder=rec)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    out = {"step_s": time.perf_counter() - t0,
+           "launches": launch_counts()["flash_attention_cuda"],
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    if rank == 0:
+        coll = rec.collectives
+        out["recorded"] = {"bytes_by_kind": coll.bytes_by_kind,
+                           "count_by_kind": coll.count_by_kind,
+                           "dot_flops": rec.dot_flops}
+        _, _, ref = spmd.local_step(cfg, "train", params, batch, scheme)
+        out["local_metrics"] = {k: float(v) for k, v in ref.items()}
+    return out
+
+
+def examples_phase(dev) -> dict:
+    """Phase 18: each ``examples/torch_*.py`` of ``EXAMPLES``, imported
+    by path and run in-process through its ``main([...])`` at its own
+    defaults, in a temporary working directory (its ``results/`` and
+    checkpoints land there).  quickstart and serve_mapped: their
+    exactness asserts, kernel 1 launched by the measured profile, and
+    kernel 1 or 2 launched while serving whenever the DP mapping places
+    a conv or fc layer on the card; serve_fleet: both tenants bit-exact,
+    ``rejected == shed``, kernel 1 launched while serving whenever a
+    tenant's plan places a conv or fc layer on ``XYZ``; train_lm at full
+    width (``EXAMPLE_TRAIN_ARGS``) for ``EXAMPLE_TRAIN_STEPS[0]`` steps,
+    then resumed to ``[1]``: finite losses, the last below the first,
+    kernel 3 twice per layer a step (forward and remat), the resume at
+    the saved step; hep_shard_demo on a fake (2, 4) CUDA group, then its
+    chosen scheme's real step on ``SPMD_WORLD`` gloo ranks at
+    ``EXAMPLE_DEMO_CUT`` (:func:`demo_rank`): loss and grad_norm within
+    ``SPMD_TRAIN_REL`` of one rank's step, rank 0's collectives and FLOPs
+    equal to ``dry_run``'s at the cut shape, kernel 3 on every rank.
+    Returns {"launches": {example: {kernel: launches}}, "walls":
+    {example: s}, "seconds": the phase's wall}."""
+    import gc
+
+    import torch
+    from repro_torch import configs as lm_configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (
+        fake_process_group, make_debug_mesh, spawn_world,
+    )
+    from repro_torch.parallel.sharding import ShardScheme
+
+    t_phase = time.perf_counter()
+    failures = []
+    launches, walls = {}, {}
+    cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    os.chdir(work)
+
+    def run(name, key, argv):
+        mod = load_example(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(list(argv))
+        torch.cuda.synchronize(dev)
+        walls[key] = time.perf_counter() - t0
+        launches[key] = launch_counts()
+        log(f"[examples] {key}: wall {walls[key]:.1f} s, launches "
+            f"{json.dumps(launches[key])}")
+        return res
+
+    def check_device_launches(key, config, got):
+        gemm = device_gemm_layers(config)
+        n = got["xnor_gemm_cuda"] + got["segment_cuda"]
+        log(f"[examples] {key}: conv / fc layers the DP mapping places on "
+            f"the card {gemm}; kernel 1 + 2 launches while it ran {n}")
+        if gemm and n == 0:
+            failures.append(f"{key}: device layers {gemm}, no BNN kernel "
+                            f"launched")
+
+    try:
+        # -- quickstart ----------------------------------------------------
+        q = run("quickstart", "quickstart", [])
+        served = {k: q["launches"]["mapped"][k] + q["launches"]["serve"][k]
+                  for k in q["launches"]["serve"]}
+        log(f"[examples] quickstart: eval acc {q['eval_acc']:.3f}; DP "
+            f"{q['t_dp'] * 1e6:.1f} / greedy {q['t_greedy'] * 1e6:.1f} / "
+            f"full-XYZ {q['t_xyz'] * 1e6:.1f} us/img (DP "
+            f"{q['t_xyz'] / q['t_dp']:.3f}x "
+            f"vs XYZ, {q['t_greedy'] / q['t_dp']:.3f}x vs greedy); schedule "
+            f"{q['schedule']}, proper batch {q['ec'].proper_batch_size}; "
+            f"mapped output and 8 answers exact; launches "
+            f"{json.dumps(q['launches'])}")
+        if q["launches"]["profile"]["xnor_gemm_cuda"] == 0:
+            failures.append("quickstart: the profile launched no kernel 1")
+        check_device_launches("quickstart", q["ec"], served)
+        del q
+
+        # -- serve_mapped --------------------------------------------------
+        r = run("serve_mapped", "serve_mapped", [])
+        log(f"[examples] serve_mapped: {len(r['scores'])} answers exact, "
+            f"p50 {r['p50_us']:.1f} us, p99 {r['p99_us']:.1f} us; schedule "
+            f"{r['schedule']}, proper batch {r['ec'].proper_batch_size}; "
+            f"launches {json.dumps(r['launches'])}")
+        if r["launches"]["plan"]["xnor_gemm_cuda"] == 0:
+            failures.append("serve_mapped: the profile launched no kernel 1")
+        check_device_launches("serve_mapped", r["ec"], r["launches"]["serve"])
+        del r
+
+        # -- serve_fleet ---------------------------------------------------
+        f = run("serve_fleet", "serve_fleet", [])
+        plan = f["plan"]
+        log(f"[examples] serve_fleet: joint makespan "
+            f"{plan.joint_makespan_s * 1e6:.1f} us vs all-GPU "
+            f"{plan.baseline_makespan_s * 1e6:.1f} us (predicted, "
+            f"{plan.vs_all_gpu:.3f}x); the example's wall, planning "
+            f"included, {walls['serve_fleet']:.1f} s. The port's joint "
+            f"co-run drained slower than all-GPU when both were served "
+            f"(phase 12): printed, not asserted")
+        xyz = []
+        configs = {t.name: t.config for t in plan.tenants}
+        for name in f["names"]:
+            ledger = f["stats"]["ledger"][name]
+            log(f"[examples] serve_fleet {name}: schedule "
+                f"{f['schedules'][name]}, {len(f['answers'][name])} answers "
+                f"exact, shed {f['shed'][name]} (= rejected), p50 "
+                f"{f['p50_us'][name]:.1f} us, p99 {f['p99_us'][name]:.1f} us, "
+                f"ledger host {ledger['host_s'] * 1e3:.2f} ms / device "
+                f"{ledger['device_s'] * 1e3:.2f} ms")
+            xyz += device_gemm_layers(configs[name])
+        got = f["launches"]["serve"]["xnor_gemm_cuda"]
+        log(f"[examples] serve_fleet: conv / fc layers on XYZ {xyz}; kernel "
+            f"1 launches while serving {got}")
+        if xyz and got == 0:
+            failures.append("serve_fleet: XYZ layers, no kernel 1 launched")
+        del f, plan
+
+        # -- train_lm ------------------------------------------------------
+        ckpt = os.path.join(work, "train_lm_ckpt")
+        per_step = None
+        for i, steps in enumerate(EXAMPLE_TRAIN_STEPS):
+            key = f"train_lm run {i + 1}"
+            t = run("train_lm", key, [*EXAMPLE_TRAIN_ARGS, "--steps",
+                                      str(steps), "--ckpt", ckpt])
+            cfg = t["cfg"]
+            per_step = cfg.n_layers * (2 if cfg.remat else 1)
+            ran = len(t["metrics"])
+            losses = [m["loss"] for m in t["metrics"]]
+            secs = sorted(m["sec"] for m in t["metrics"][1:])
+            k3 = launches[key]["flash_attention_cuda"]
+            log(f"[examples] {key}: {cfg.name} resumed at {t['resumed']}, "
+                f"{ran} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                f"step p50 {secs[len(secs) // 2] * 1e3:.1f} ms (of "
+                f"{len(secs)} after the first), kernel 3 launches {k3} "
+                f"({per_step} a step expected)")
+            want_start = 0 if i == 0 else EXAMPLE_TRAIN_STEPS[i - 1]
+            if t["resumed"] != want_start or ran != steps - want_start:
+                failures.append(f"{key}: resumed {t['resumed']}, ran {ran}")
+            if not all(math.isfinite(x) for x in losses):
+                failures.append(f"{key}: loss not finite")
+            if i == 0 and not losses[-1] < losses[0]:
+                failures.append(f"{key}: loss {losses[0]} -> {losses[-1]}")
+            if k3 != per_step * ran:
+                failures.append(f"{key}: kernel 3 launches {k3}, "
+                                f"{per_step * ran} expected")
+            del t
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        # -- hep_shard_demo ------------------------------------------------
+        d = run("hep_shard_demo", "hep_shard_demo", [])
+
+        def knobs(scheme):
+            return {k: getattr(scheme, k) for k in ("tp", "fsdp",
+                                                    "batch_over_model")}
+
+        for trial in d["trials"].values():
+            log(f"[examples] hep_shard_demo trial {knobs(trial.scheme)}: "
+                f"compute {trial.compute_s * 1e3:.3f} ms, memory "
+                f"{trial.memory_s * 1e3:.3f} ms, collective "
+                f"{trial.collective_s * 1e3:.3f} ms, transfer "
+                f"{trial.transfer_s * 1e3:.4f} ms, peak "
+                f"{trial.peak_bytes / 2**30:.2f} GiB, cost {trial.cost:.6g}")
+        best = d["best"]
+        log(f"[examples] hep_shard_demo: {len(d['trials'])} schemes traced "
+            f"({len(d['history'])} steps of the search) of {d['cfg'].name} "
+            f"at {d['shape'].name} on a fake (2, 4) CUDA group; chosen "
+            f"{knobs(best.scheme)}: compute {best.compute_s * 1e3:.3f}"
+            f" ms, memory {best.memory_s * 1e3:.3f} ms, collective "
+            f"{best.collective_s * 1e3:.3f} ms, transfer "
+            f"{best.transfer_s * 1e3:.4f} ms, peak "
+            f"{best.peak_bytes / 2**30:.2f} GiB")
+        cfg = d["cfg"]
+        scheme = dataclasses.asdict(best.scheme)
+        del d
+        b, s_ = EXAMPLE_DEMO_CUT
+        cell = lm_configs.ShapeCell("demo cut", "train", s_, b)
+        with fake_process_group(SPMD_WORLD):
+            mesh = make_debug_mesh((2, 4), ("data", "model"),
+                                   device_type="cuda")
+            pred = dryrun.dry_run(cfg, cell, mesh, ShardScheme(**scheme),
+                                  device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_world(SPMD_WORLD, demo_rank, {
+            "device_type": "cuda", "cfg": cfg, "scheme": scheme,
+            "mesh": (2, 4), "shape": EXAMPLE_DEMO_CUT},
+            backend="gloo", device_type="cuda",
+            timeout=EXAMPLE_DEMO_TIMEOUT_S)
+        walls["hep_shard_demo real step"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        m, ref = r0["metrics"], r0["local_metrics"]
+        errs = {k: abs(m[k] - ref[k]) / abs(ref[k])
+                for k in ("loss", "grad_norm")}
+        full = lm_configs.SHAPES["train_4k"]
+        per_rank = [r["launches"] for r in ranks]
+        launches["hep_shard_demo real step, per rank"] = per_rank
+        want = {"bytes_by_kind": pred["collectives"]["by_kind_bytes"],
+                "count_by_kind": pred["collectives"]["by_kind_count"],
+                "dot_flops": pred["per_device"]["hlo_flops"]}
+        log(f"[examples] hep_shard_demo real step: {knobs(best.scheme)}, "
+            f"{cfg.name} ({cfg.n_layers} layers) bf16 AdamW, B x S = "
+            f"{EXAMPLE_DEMO_CUT} (cut from {full.batch} x {full.seq}: 8 "
+            f"ranks share one "
+            f"card), {SPMD_WORLD} gloo ranks: loss {m['loss']:.6f} vs one "
+            f"rank {ref['loss']:.6f}, grad_norm {m['grad_norm']:.6f} vs "
+            f"{ref['grad_norm']:.6f}, relative {errs} (limit "
+            f"{SPMD_TRAIN_REL}); kernel 3 launches per rank {per_rank}; "
+            f"step wall {max(r['step_s'] for r in ranks):.2f} s (slowest "
+            f"rank, full tensors gathered); world "
+            f"{walls['hep_shard_demo real step']:.1f} s")
+        log(f"[examples] hep_shard_demo real step: rank 0's StepRecorder "
+            f"{json.dumps(r0['recorded'])}; dry_run at the cut shape on a "
+            f"fake (2, 4) CUDA group {json.dumps(want)}")
+        if not all(math.isfinite(m[k]) and e <= SPMD_TRAIN_REL
+                   for k, e in errs.items()):
+            failures.append(f"hep_shard_demo real step: {errs}")
+        if min(per_rank) == 0:
+            failures.append(f"hep_shard_demo real step: kernel 3 per rank "
+                            f"{per_rank}")
+        if r0["recorded"] != want:
+            failures.append("hep_shard_demo real step: the recorded step "
+                            "differs from the dry run")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"[examples] phase 18: {seconds:.2f} s; walls "
+        f"{json.dumps({k: round(v, 2) for k, v in walls.items()})}")
+    if failures:
+        raise AssertionError(f"phase 18: {failures}")
+    return {"launches": launches, "walls": walls, "seconds": seconds}
 
 
 def main() -> int:
@@ -4296,6 +4670,10 @@ def main() -> int:
     # -- 17. the sharded step on 8 ranks -----------------------------------
     spmd_res = spmd_phase(dev)
 
+    # -- 18. the examples ---------------------------------------------------
+    ex = examples_phase(dev)
+    ex_bnn = {k: v for k, v in ex["launches"].items() if isinstance(v, dict)}
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -4304,13 +4682,17 @@ def main() -> int:
          "replaces": "src/repro/kernels/xnor_popcount.py:61",
          "launches": main_counts["xnor_gemm_cuda"], "max_abs_err": err1,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "library_ms": None,
+         "launches_phase_18": {k: v["xnor_gemm_cuda"]
+                               for k, v in ex_bnn.items()}},
         {"name": "segment_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_fused.cu",
          "replaces": "src/repro/kernels/segment_fused.py:223",
          "launches": main_counts["segment_cuda"], "max_abs_err": err2,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None,
+         "launches_phase_18": {k: v["segment_cuda"]
+                               for k, v in ex_bnn.items()}},
         {"name": "flash_attention_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",
@@ -4333,6 +4715,10 @@ def main() -> int:
              **{f"{name} remat {'on' if r else 'off'}": v["launches"]
                 for name, ab in lm_train["remat_ab"].items()
                 for r, v in ab.items()}},
+         "launches_phase_18": {
+             **{k: v["flash_attention_cuda"] for k, v in ex_bnn.items()},
+             "hep_shard_demo real step, per rank":
+                 ex["launches"]["hep_shard_demo real step, per rank"]},
          "ms_by_shape": {a: r["ms"] for a, r in flash_times.items()},
          "bound_ms_by_shape": {a: r["bound_ms"]
                                for a, r in flash_times.items()}},
@@ -4345,6 +4731,10 @@ def main() -> int:
          "library_ms": shard["library_ms"],
          "path": f"{LM_ARCH} context-parallel prefill, {KV_PARTS} KV parts "
                  f"a layer",
+         "launches_by_path": {
+             f"{LM_ARCH} {SPMD_WORLD}-rank context-parallel train step on "
+             f"{shape}, per rank": lse
+             for shape, lse in spmd_res["kvpar_lse"].items()},
          "attention_ms_per_layer": shard["attention_ms"],
          "attention_busy_ms_per_layer": shard["attention_busy_ms"]},
     ]

@@ -481,12 +481,13 @@ def _recompute_grads(q, k, v, grad_out, *, causal: bool, scale: float,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _per_shard(fn, q, k, *rest, **kw):
+def _per_shard(fn, q, k, *rest, head_dim: int = 1, **kw):
     """``fn(q, k, *rest, **kw)`` on tensors laid out as kernel 3's
-    (B, H, S, D).  On DTensors it runs on the local shards under the
-    op's sharding rule (batch shards, head shards where H and Hkv divide
-    the mesh dim, everything else replicated) and returns DTensors of
-    those placements, as the op runs the forward; on plain tensors it is
+    (B, H, S, D), or with the heads at `head_dim` ((B, S, H, D) for 2).
+    On DTensors it runs on the local shards under the op's sharding rule
+    (batch shards, head shards where H and Hkv divide the mesh dim,
+    everything else replicated) and returns DTensors of those
+    placements, as the op runs the forward; on plain tensors it is
     ``fn`` itself."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -497,8 +498,8 @@ def _per_shard(fn, q, k, *rest, **kw):
     def keep(i, p):
         n = mesh.size(i)
         return isinstance(p, Shard) and (
-            p.dim == 0 or (p.dim == 1 and q.shape[1] % n == 0
-                           and k.shape[1] % n == 0))
+            p.dim == 0 or (p.dim == head_dim and q.shape[head_dim] % n == 0
+                           and k.shape[head_dim] % n == 0))
 
     placements = tuple(p if keep(i, p) else Replicate()
                        for i, p in enumerate(q.placements))

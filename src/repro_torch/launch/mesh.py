@@ -11,7 +11,8 @@ world of any size in one process whose collectives move nothing, so
 ``launch.dryrun`` to trace a sharded step on.  :func:`spawn_world`
 gives a real world of N processes, whose collectives move data: the
 counterpart of the JAX package's ``--xla_force_host_platform_device_
-count=8`` subprocess tests.
+count=8`` subprocess tests.  :func:`all_gather_through_all_to_all` is
+the all-gather such a world's gloo ranks run on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ __all__ = [
     "PRODUCTION_AXES",
     "PRODUCTION_SHAPES",
     "abstract_mesh",
+    "all_gather_through_all_to_all",
     "fake_process_group",
     "make_debug_mesh",
     "make_production_mesh",
@@ -124,8 +126,34 @@ def fake_process_group(world_size: int):
         dist.destroy_process_group()
 
 
+def all_gather_through_all_to_all(dispatch_key: str = "CUDA"):
+    """gloo's ``all_gather_into_tensor`` on CUDA tensors kills the
+    process (SIGSEGV in torch 2.11), where its ``all_to_all_single``
+    runs.  This registers, for `dispatch_key`, an implementation of the
+    functional all-gather (``_c10d_functional::all_gather_into_tensor``,
+    the op DTensor and ``full_tensor()`` issue) that runs it as an
+    ``all_to_all_single`` of the input repeated once per rank: every
+    rank receives each rank's input, the same bytes an all-gather
+    moves, on the same tensors.  A ``StepRecorder`` still counts the
+    all-gather DTensor issued.  Returns the ``torch.library.Library``
+    that holds the implementation: it is in force while that object
+    lives."""
+    import torch
+
+    def all_gather_into_tensor(input, group_size, group_name):
+        x = input.contiguous()
+        rows = [x.shape[0]] * group_size
+        return torch.ops._c10d_functional.all_to_all_single(
+            x.repeat(group_size, *([1] * (x.dim() - 1))), rows, rows,
+            group_name)
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, dispatch_key)
+    return lib
+
+
 def _rank_main(rank, world_size, backend, device_type, store_path,
-               timeout, results, fn, args):
+               timeout, results, fn, args, route_all_gather):
     """One rank of :func:`spawn_world`: join the group, run
     ``fn(rank, *args)``, put ``(rank, ok, result or traceback)`` on
     `results`.  A rank that fails reports before it leaves the group:
@@ -147,16 +175,22 @@ def _rank_main(rank, world_size, backend, device_type, store_path,
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world_size,
                                 timeout=timedelta(seconds=timeout))
+        # held for the rank's lifetime: the registration lasts as long
+        # as the library object
+        shim = (all_gather_through_all_to_all() if route_all_gather
+                and backend == "gloo" and device_type == "cuda" else None)
         out = fn(rank, *args)
     except BaseException:  # reported to the parent, which raises it
         results.put((rank, False, traceback.format_exc()))
         raise
     dist.destroy_process_group()
     results.put((rank, True, out))
+    del shim
 
 
 def spawn_world(world_size: int, fn, *args, backend: str = "gloo",
-                device_type: str = "cpu", timeout: float = 300.0) -> list:
+                device_type: str = "cpu", timeout: float = 300.0,
+                route_all_gather: bool = True) -> list:
     """Run ``fn(rank, *args)`` on each rank of a world of `world_size`
     processes and return what each rank returned, in rank order.
 
@@ -165,8 +199,13 @@ def spawn_world(world_size: int, fn, *args, backend: str = "gloo",
     importable by name.  The rendezvous is a ``FileStore`` in a fresh
     temporary directory: no network, no port.  Each rank runs one CPU
     thread (``device_type="cpu"``) or takes card ``rank % count``,
-    initialises the process group (`backend`; ``gloo`` also carries CUDA
-    tensors, through host memory), runs `fn`, and destroys the group.
+    initialises the process group (`backend`), runs `fn`, and destroys
+    the group.  ``gloo`` carries CUDA tensors through host memory, all
+    but its all-gather, which kills the process: with ``backend="gloo"``
+    and ``device_type="cuda"`` each rank first installs
+    :func:`all_gather_through_all_to_all` (unless `route_all_gather` is
+    false, for a probe of gloo's own all-gather).  nccl, gloo on the
+    CPU and the fake group are left alone.
 
     When a rank raises, this raises ``RuntimeError`` with that rank's
     traceback; when a rank dies without a result, or `timeout` seconds
@@ -181,7 +220,8 @@ def spawn_world(world_size: int, fn, *args, backend: str = "gloo",
     procs = [
         ctx.Process(target=_rank_main, daemon=True, args=(
             rank, world_size, backend, device_type,
-            os.path.join(root, "store"), timeout, results, fn, args))
+            os.path.join(root, "store"), timeout, results, fn, args,
+            route_all_gather))
         for rank in range(world_size)
     ]
     got: dict = {}

@@ -267,7 +267,10 @@ class KVParallelAttentionFn(torch.autograd.Function):
     and the plain body on CPU tensors; only q, k and v are saved.  The
     backward recomputes :func:`_kv_parallel_rows` one ``q_chunk`` of
     queries at a time under ``torch.autograd.grad`` (float32; dk and dv
-    summed over the chunks in float32)."""
+    summed over the chunks in float32).  On DTensors it recomputes on
+    the local shards, as ``FlashAttentionFn``'s backward does (batch and
+    divisible head shards kept, the KV parts gathered): autograd over
+    whole DTensors is a path the card's torch refuses some views on."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_chunk: int, n_kv_parts: int):
@@ -284,25 +287,37 @@ class KVParallelAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        from repro_torch.kernels.flash_attention import _per_shard
+
         q, k, v = ctx.saved_tensors
         causal, q_blk, n_kv_parts = ctx.args
-        Sq = q.shape[1]
-        dq = torch.empty_like(q)
-        kf = k.detach().float().requires_grad_()
-        vf = v.detach().float().requires_grad_()
-        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-        for q0 in range(0, Sq, q_blk):
-            rows = slice(q0, q0 + q_blk)
-            with torch.enable_grad():
-                qi = q[:, rows].detach().float().requires_grad_()
-                oi = _kv_parallel_rows(qi, kf, vf, causal=causal,
-                                       n_kv_parts=n_kv_parts, q0=q0, Sq=Sq)
-                gq, gk, gv = torch.autograd.grad(
-                    oi, (qi, kf, vf), grad_out[:, rows].float())
-            dq[:, rows] = gq
-            dk += gk
-            dv += gv
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        dq, dk, dv = _per_shard(_kv_parallel_grads, q, k, v, grad_out,
+                                head_dim=2, causal=causal, q_blk=q_blk,
+                                n_kv_parts=n_kv_parts)
+        return dq, dk, dv, None, None, None
+
+
+def _kv_parallel_grads(q, k, v, grad_out, *, causal: bool, q_blk: int,
+                       n_kv_parts: int):
+    """(dq, dk, dv) of :func:`_kv_parallel_rows` on plain tensors,
+    recomputed one ``q_blk`` of queries at a time (float32)."""
+    Sq = q.shape[1]
+    dq = torch.empty_like(q)
+    kf = k.detach().float().requires_grad_()
+    vf = v.detach().float().requires_grad_()
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, Sq, q_blk):
+        rows = slice(q0, q0 + q_blk)
+        with torch.enable_grad():
+            qi = q[:, rows].detach().float().requires_grad_()
+            oi = _kv_parallel_rows(qi, kf, vf, causal=causal,
+                                   n_kv_parts=n_kv_parts, q0=q0, Sq=Sq)
+            gq, gk, gv = torch.autograd.grad(
+                oi, (qi, kf, vf), grad_out[:, rows].float())
+        dq[:, rows] = gq
+        dk += gk
+        dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def gated_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:

@@ -309,11 +309,16 @@ def reduce_partial(x):
 
 class _GradAsInput(torch.autograd.Function):
     """The identity, whose backward brings the gradient to the input's
-    own placements (a DTensor)."""
+    own placements (a DTensor).  The gradient of a pending sum
+    (``Partial``) is each part's: replicated over those mesh dims."""
 
     @staticmethod
     def forward(ctx, x):
-        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        from torch.distributed.tensor import Partial, Replicate
+
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if isinstance(p, Partial) else p
+                               for p in x.placements)
         return x.view_as(x)
 
     @staticmethod

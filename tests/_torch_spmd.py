@@ -199,6 +199,53 @@ def run_cases(rank: int, cases: list, np_params: dict) -> dict:
     return out
 
 
+def _routed_keys() -> list:
+    """The device keys ("CPU", "CUDA") with a python implementation of
+    the functional all-gather ("_c10d_functional/all_gather_into_tensor/
+    <key>" entries of ``torch.library``'s registry; torch registers its
+    own for other keys)."""
+    keys = (k.rsplit("/", 1)[1] for k in torch.library._impls
+            if k.startswith("_c10d_functional/all_gather_into_tensor/"))
+    return sorted(k for k in keys if k in ("CPU", "CUDA"))
+
+
+def all_gather_shim(rank: int) -> dict:
+    """gloo's own all-gather of this rank's (3, 2, 2) and (1, 5) tensors
+    (values that name the rank), then the same gathers through
+    ``all_gather_through_all_to_all`` registered for the CPU key, with
+    the keys registered before, during and after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import all_gather_through_all_to_all
+
+    xs = [torch.arange(12.0).reshape(3, 2, 2) + 100 * rank,
+          torch.arange(5, dtype=torch.int64).reshape(1, 5) * (rank + 1)]
+    ops = torch.ops._c10d_functional
+    group = dist.group.WORLD
+
+    def gather():
+        # the op DTensor and full_tensor() issue
+        # NumPy: a tensor would cross back to the parent by a file
+        # descriptor, gone once this rank exits
+        return [ops.wait_tensor(ops.all_gather_into_tensor(
+            x, group.size(), group.group_name)).numpy() for x in xs]
+
+    native = gather()
+    before = _routed_keys()
+    lib = all_gather_through_all_to_all(dispatch_key="CPU")
+    during = _routed_keys()
+    routed = gather()
+    del lib
+    return {"native": native, "routed": routed, "before": before,
+            "during": during, "after": _routed_keys()}
+
+
+def routed_keys(rank: int) -> list:
+    """What ``spawn_world`` registered in this rank."""
+    del rank
+    return _routed_keys()
+
+
 def ok(rank: int, value):
     """``spawn_world``'s own tests: every rank's answer."""
     import torch.distributed as dist

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX or JAX-package import anywhere in
-``src/repro_torch`` or ``chip_smoke.py``, an ``__all__`` in every
+``src/repro_torch``, ``chip_smoke.py`` or the port's examples
+(``examples/torch_*.py``), an ``__all__`` in every
 package ``__init__``, and entry points that refuse to run without a card
 unless the caller asks for the CPU."""
 
@@ -16,7 +17,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCANNED = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:

@@ -10,7 +10,9 @@ PRNGKey(0))`` on the smoke configs, carried across as NumPy.
 
 * Training: one AdamW step (bf16 gradient compression) at
   ``accum_steps`` 1 and 4 on (2, 4) under ``ShardScheme(tp=True,
-  fsdp="zero1")``: loss, ce and grad_norm within ``REL = 1e-5``
+  fsdp="zero1")``, once more with ``attn_kv_parallel`` (the
+  context-parallel attention's backward on sharded tensors): loss, ce
+  and grad_norm within ``REL = 1e-5``
   of the port's local step and of the JAX package's; every updated leaf
   by ``tests/_torch_lm_train.py``'s rule (0.05 x lr where the JAX
   clipped gradient is at least 1e-6, 2 x lr below it).  The compression
@@ -55,11 +57,14 @@ W_ATOL, GRAD_FLOOR = 0.05, 1e-6
 TIMEOUT_S = 300.0
 Z1 = {"tp": True, "fsdp": "zero1"}
 MESH = (2, 4)
-# name: (arch, accum_steps, smoke-config overrides); qwen2's 14 heads at
-# full width do not divide a 4-wide 'model' axis: 6 over 4 here, whose
-# merged attention output's gradient came back split over 'model'
+# name: (arch, accum_steps, smoke-config overrides[, scheme knobs]);
+# qwen2's 14 heads at full width do not divide a 4-wide 'model' axis: 6
+# over 4 here, whose merged attention output's gradient came back split
+# over 'model'
 TRAINS = {"olmo_1b-accum1": ("olmo_1b", 1, {}),
           "olmo_1b-accum4": ("olmo_1b", 4, {}),
+          "olmo_1b-kvpar-accum1": ("olmo_1b", 1, {},
+                                   {"attn_kv_parallel": True}),
           "qwen2_0_5b-6heads-accum1": (
               "qwen2_0_5b", 1, {"n_heads": 6, "n_kv_heads": 2,
                                 "d_model": 96})}
@@ -72,8 +77,9 @@ RECORDS = {"olmo_1b-prefill": ("olmo_1b", "prefill"),
 def _cases() -> list:
     cases = [{"name": f"train-{name}", "run": "train", "arch": arch,
                "cfg_overrides": over, "mesh": MESH,
-               "scheme": {**Z1, "accum_steps": n}, "seed": 3}
-              for name, (arch, n, over) in TRAINS.items()]
+               "scheme": {**Z1, "accum_steps": n, **dict(*knobs)},
+               "seed": 3}
+              for name, (arch, n, over, *knobs) in TRAINS.items()]
     cases += [{"name": f"record-{name}", "run": "record", "arch": arch,
                "kind": kind, "mesh": MESH, "scheme": Z1, "seed": 4,
                "batch": H.BATCH, "seq": H.SEQ}
@@ -92,7 +98,7 @@ def jax_params():
            for a in {c["arch"] for c in _cases()}}
     out.update({f"train-{name}": R_T.init_params(_r_cfg(arch, over),
                                       jax.random.PRNGKey(0))
-                for name, (arch, _, over) in TRAINS.items() if over})
+                for name, (arch, _, over, *_) in TRAINS.items() if over})
     return out
 
 
@@ -110,7 +116,7 @@ def _rel(a, b) -> float:
 
 
 def _jax_train(jax_params, name: str) -> dict:
-    arch, accum, over = TRAINS[name]
+    arch, accum, over = TRAINS[name][:3]
     cfg = _r_cfg(arch, over)
     p = jax_params[f"train-{name}" if over else arch]
     toks = jnp.asarray(H.tokens(cfg, H.BATCH, H.SEQ, 3))

@@ -3,8 +3,11 @@ world of spawned ``gloo`` processes on the CPU whose rendezvous is a
 ``FileStore`` in a temporary directory.  Results come back in rank
 order; a rank that raises fails the parent with its traceback within
 the timeout; a rank that hangs is killed at the timeout; either way no
-process of the world is left running.  The rank bodies are in
-``tests/_torch_spmd.py`` (a spawned child imports them by name)."""
+process of the world is left running.  The all-gather gloo ranks on
+CUDA run (``all_gather_through_all_to_all``, an ``all_to_all_single``)
+is held here to gloo's own on the CPU, registered for the CPU key.  The
+rank bodies are in ``tests/_torch_spmd.py`` (a spawned child imports
+them by name)."""
 
 from __future__ import annotations
 
@@ -56,3 +59,29 @@ def test_a_rank_that_hangs_is_killed_at_the_timeout():
         spawn_world(2, H.hang_on, 1, timeout=30.0)
     assert 30.0 <= time.monotonic() - t0 < 90.0
     assert not _children()
+
+
+def test_all_gather_through_all_to_all_equals_the_native_all_gather():
+    got = spawn_world(2, H.all_gather_shim, timeout=TIMEOUT_S)
+    for r in got:
+        assert r["before"] == [] and r["after"] == []
+        assert r["during"] == ["CPU"]
+        assert len(r["routed"]) == len(r["native"]) == 2
+        for routed, native in zip(r["routed"], r["native"]):
+            routed, native = torch.from_numpy(routed), torch.from_numpy(native)
+            assert routed.dtype == native.dtype
+            assert torch.equal(routed, native)
+    # each rank holds every rank's input, in rank order
+    x0 = torch.arange(12.0).reshape(3, 2, 2)
+    assert torch.equal(torch.from_numpy(got[0]["routed"][0]),
+                       torch.cat([x0, x0 + 100]))
+    assert torch.equal(torch.from_numpy(got[1]["routed"][1]),
+                       torch.arange(5).reshape(1, 5) * torch.tensor(
+                           [[1], [2]]))
+    assert not _children()
+
+
+def test_spawn_world_routes_nothing_for_gloo_on_the_cpu():
+    """Only a gloo world on CUDA installs the all-gather's routing."""
+    assert spawn_world(2, H.routed_keys, backend="gloo", device_type="cpu",
+                       timeout=TIMEOUT_S) == [[], []]
