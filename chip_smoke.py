@@ -37,8 +37,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the f32 sums differs; bf16 at 2e-2, the JAX bf16 test's tolerance:
    the tensor-core path rounds P to bf16 for P.V, an error of the size
    of the bf16 output's own rounding), bf16 at head dims 32, 64, 112,
-   128 (f32 at 112 too), and the deepseek-moe-16b and zamba2-7b prefill
-   shapes;
+   128 (f32 at 112 too), the deepseek-moe-16b and zamba2-7b prefill
+   shapes, and phase 4e's: qwen2.5-14b (GQA group 5) and grok-1 (group
+   6) at D 128, llava-next-mistral-7b's S 2,624 (576 frontend embeds
+   ahead of 2,048 tokens) and musicgen-medium's 2,112 at MHA 24 / D 64,
+   Sq 1 against Sk 2,048 at group 5, and f32 at groups 5 and 6;
 4b. LM serving at full width: qwen2-0.5B (24 layers, d_model 896) with
    random weights from a seeded generator on the card.  An f32 check
    (B 2 x S 256: last-position logits through the kernel against the
@@ -47,8 +50,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    2048-token prompts (NumPy seed 0), the teacher-forced decode logits
    against a full forward with the plain attention, and one traced
    prefill for the card's idle share;
-4c. kernel 3 timing at the qwen2-0.5B, deepseek-moe-16b (D 128) and
-   zamba2-7b (D 112) prefill shapes, each beside its bound and
+4c. kernel 3 timing at the qwen2-0.5B, deepseek-moe-16b (D 128),
+   zamba2-7b (D 112), qwen2.5-14b, llava-next-mistral-7b (S 2,624),
+   musicgen-medium (S 2,112) and grok-1 prefill shapes, each beside its
+   bound and
    ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
    (timed here only; the port never calls it);
 4d. the MoE, SSM and hybrid families at full width (``family_phase``),
@@ -56,16 +61,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    (28 layers, 64 routed experts top-6 + 2 shared), zamba2-7b (81
    Mamba2 layers, 13 shared-block applications at head dim 112) and
    mamba2-130m (24 layers, attention-free), bf16 with seeded random
-   weights on the card.  Each: f32 checks (deepseek cut to 2 layers,
-   the others whole; last-position logits through the kernel against
-   the plain attention, for mamba2-130m the card against CPU tensors,
-   and the teacher-forced decode path against the full forward; <=
-   1e-4), ``greedy_decode`` of 32 tokens from 4 x 2048-token prompts
-   (``flash_attention_cuda`` must launch 28, 13 and 0 times), the
-   teacher-forced bf16 check (deepseek under capacity_factor 16, which
-   must drop nothing, held at the positions whose routing agreed in
-   every layer; the limit in ``FAMILY_ARCHS``' comment), and one traced
-   prefill;
+   weights on the card, each through ``full_width_arch``: f32 checks at
+   the deepest depth whose f32 weights (``cfg.n_params()``) and
+   activations fit the card's free memory (deepseek at least 12 layers;
+   the logits at every position and the residual stream after every
+   attention block through the kernel against the plain attention, for
+   mamba2-130m the card against CPU tensors; in an MoE every (token,
+   layer) top-k set equal on both paths; then the teacher-forced decode
+   path against the full forward, under the full forward's routing
+   where a tie flipped a top-k set; <= 1e-4), ``greedy_decode`` of 32
+   tokens from 4 x 2048-token prompts (``flash_attention_cuda`` must
+   launch 28, 13 and 0 times), the teacher-forced bf16 check (an MoE
+   under a capacity factor that must drop nothing, held at the positions
+   whose routing agreed in every layer; the limit in ``FAMILY_ARCHS``'
+   comment), and one traced prefill;
+4e. the six attention configurations the card had not served at full
+   width (``dense_family_phase``), the same way, cheapest first:
+   olmo-1b (non-parametric LayerNorm, tied embeddings), minitron-8b
+   (``relu2``, 256,000-row vocab), qwen2.5-14b (GQA group 5, 48 layers;
+   its 59 GB of f32 weights checked before the bf16 ones are drawn),
+   musicgen-medium (``gelu``, 64 frontend embeds) and
+   llava-next-mistral-7b (576 frontend embeds), each with the stub's
+   seeded embeds ahead of the prompt through ``greedy_decode``'s
+   prefill, and grok-1 cut to 4 of its 64 layers at full width (the cut
+   printed); flash launches a prefill 16, 32, 48, 48, 32 and 4; a
+   summary line per model with the card's name and power limit;
 5. main path at full width: random fp weights from NumPy seed 0 ->
    ``pack_params`` -> measured ``profile_bnn_model`` (through a fresh
    ``ProfileStore("dir://...").get_or_profile``, which saves it) -> DP
@@ -309,7 +329,8 @@ such traces fail the run.
 The launch counts are zeroed just before each main path and read just
 after it: phase 4b's ``greedy_decode`` (``flash_attention_cuda`` must
 launch once per layer of the prefill, 24 times), phase 4d's three
-``greedy_decode`` runs (28, 13 and 0 launches), phases 5-6 up to
+``greedy_decode`` runs (28, 13 and 0 launches), phase 4e's six (16, 32,
+48, 48, 32 and 4), phases 5-6 up to
 phase 6's untraced serving (both BNN kernels must have launched while
 serving), phase 9's adaptive serving (``segment_cuda``), phase 10's
 explore job (``xnor_gemm_cuda``), phase 11's autotune sweep and
@@ -417,34 +438,71 @@ FLASH_CASES = tuple(
     ("f32 D112 full", 1, 4, 4, 77, 130, 112, "float32", False),
     ("deepseek prefill", 4, 16, 16, 2048, 2048, 128, "bfloat16", True),
     ("zamba2 prefill", 4, 32, 32, 2048, 2048, 112, "bfloat16", True),
+    # phase 4e's prefill shapes: GQA groups 5 and 6 at D 128, llava's 576
+    # and musicgen's 64 frontend embeds ahead of the 2,048 tokens
+    ("qwen2.5-14b prefill", 4, 40, 8, 2048, 2048, 128, "bfloat16", True),
+    ("grok prefill", 4, 48, 8, 2048, 2048, 128, "bfloat16", True),
+    ("llava prefill", 4, 32, 8, 2624, 2624, 128, "bfloat16", True),
+    ("musicgen prefill", 4, 24, 24, 2112, 2112, 64, "bfloat16", True),
+    ("Sq 1 / Sk 2048 group 5", 4, 40, 8, 1, 2048, 128, "bfloat16", True),
+    ("f32 D128 GQA 5", 2, 10, 2, 200, 200, 128, "float32", True),
+    ("f32 D128 GQA 6", 2, 12, 2, 200, 200, 128, "float32", True),
 )
 # kernel 3 is timed (phase 4c) at these models' prefill shapes: B
-# LM_BATCH, S LM_PROMPT, their heads and head dims
-FLASH_TIMED = ("qwen2_0_5b", "deepseek_moe_16b", "zamba2_7b")
-# the MoE, SSM and hybrid families at full width (phase 4d): flash
-# launches per prefill (one per attention-block application); the depth
-# of each f32 check (None: the whole model; deepseek's 67.5 GB of f32
-# weights do not fit beside its activations), where the kernel is held
-# to the plain attention (mamba2-130m: the card to CPU tensors) and the
-# teacher-forced decode path to the full forward, both within
-# LM_F32_REL; the teacher-forced check's batch, prompt and decode
-# steps; the capacity factor under which deepseek's check must drop
-# nothing (decode's C = 4 for one token, prefill's 744 and more); and
-# the share of (token, layer) top-k sets that must agree between
-# deepseek's two bf16 paths (routing flips there are real: a bf16
-# rounding moves a gate across the top-k boundary).  The bf16
-# teacher-forced logits are held to LM_BF16_REL (phase 4b's), or, where
-# the f32 check ran at full depth, to the bf16 full forward's own
-# distance from the f32 one if that is larger: two bf16 computations of
-# one function are held to bf16's own error, not below it (zamba2-7b's
-# 81 + 13 blocks drift 0.12 from f32, its decode path 0.11;
-# tools/lm_bf16_drift.py)
+# LM_BATCH, S LM_PROMPT plus the model's frontend embeds, its heads and
+# head dim (olmo-1b has deepseek's shape, minitron-8b llava's without
+# the embeds)
+FLASH_TIMED = ("qwen2_0_5b", "deepseek_moe_16b", "zamba2_7b", "qwen2_5_14b",
+               "llava_next_mistral_7b", "musicgen_medium", "grok_1_314b")
+# LMs at full width, one at a time, each freed before the next: the MoE,
+# SSM and hybrid families (phase 4d), then the six attention
+# configurations phase 4e adds (cheapest first).  FAMILY_FLASH: the
+# flash launches a prefill must make (one per attention-block
+# application).  DEPTH_CUT: the one cut, of depth only: grok-1's 64
+# layers take 633 GB in bf16, its first 4 at full width 39.4 GB plus
+# 3.2 GB of embeddings.  Each f32 check runs at the deepest depth whose
+# f32 weights (``cfg.n_params()``) and the checks' activations
+# (``f32_check_bytes``) fit in the card's free memory, worked out in the
+# phase (deepseek-moe-16b's must reach F32_MIN_DEPTH): the logits at
+# every position and the residual stream after every attention block
+# through the kernel are held to the plain attention (mamba2-130m: the
+# card to CPU tensors), and the teacher-forced decode path to the full
+# forward, all within LM_F32_REL; in the MoE families every (token,
+# layer) top-k set must agree between the kernel and the plain path.
+# The decode path's routing may leave the full forward's at a tie (on
+# an NVIDIA H100 80GB HBM3 at 700 W deepseek's 28 f32 layers flipped 57
+# of 28,616 sets, the lowest at a gap of 7.9e-7 between the 6th and 7th
+# probabilities, and moved the logits 4.1e-2): every flip in the lowest
+# layer that has one must be a tie within LM_F32_REL, and the decode
+# path is then held under the full forward's routing.  The
+# teacher-forced check's batch, prompt and decode steps; the capacity
+# factor under which an MoE's check must drop nothing (at least E /
+# top_k, which lets an expert take every token of a group: deepseek's
+# 16, grok-1's 4, whose (G, E, C, 32,768) buffers 16 would quadruple);
+# and the share of (token, layer) top-k sets that must agree between
+# the two bf16 paths (routing flips there are real: a bf16 rounding
+# moves a gate across the top-k boundary).  The bf16 teacher-forced
+# logits are held to LM_BF16_REL (phase 4b's), or, where the f32 check
+# ran at full depth, to the bf16 full forward's own distance from the
+# f32 one if that is larger: two bf16 computations of one function are
+# held to bf16's own error, not below it (zamba2-7b's 81 + 13 blocks
+# drift 0.12 from f32, its decode path 0.11; tools/lm_bf16_drift.py).
+# MoE archs are held at the positions whose routing agreed in every
+# layer.
 FAMILY_ARCHS = ("deepseek_moe_16b", "zamba2_7b", "mamba2_130m")
-FAMILY_FLASH = {"deepseek_moe_16b": 28, "zamba2_7b": 13, "mamba2_130m": 0}
-FAMILY_F32_DEPTH = {"deepseek_moe_16b": 2, "zamba2_7b": None,
-                    "mamba2_130m": None}
+DENSE_ARCHS = ("olmo_1b", "minitron_8b", "qwen2_5_14b", "musicgen_medium",
+               "llava_next_mistral_7b", "grok_1_314b")
+FAMILY_FLASH = {"deepseek_moe_16b": 28, "zamba2_7b": 13, "mamba2_130m": 0,
+                "olmo_1b": 16, "minitron_8b": 32, "qwen2_5_14b": 48,
+                "musicgen_medium": 48, "llava_next_mistral_7b": 32,
+                "grok_1_314b": 4}
+DEPTH_CUT = {"grok_1_314b": 4}
+F32_MIN_DEPTH = {"deepseek_moe_16b": 12}
+# what the f32 checks may need beyond the counted tensors: the caching
+# allocator's rounding and fragmentation, cuBLAS workspaces, temporaries
+F32_SLACK = 4 << 30
 TF_BATCH, TF_PROMPT, TF_STEPS = 2, 512, 16
-TF_CAPACITY = 16.0
+TF_CAPACITY = {"deepseek_moe_16b": 16.0, "grok_1_314b": 4.0}
 ROUTE_AGREE_FLOOR = 0.5
 # co-serving (phase 12): the batch the fleet is mapped and served at,
 # requests per tenant under each fleet mapping, the width levels of the
@@ -1611,24 +1669,71 @@ def tree_to(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
+class Routing(list):
+    """Recorded expert ids, one (tokens, k) tensor per ``moe_ffn`` call,
+    and in ``gaps`` each token's gap between its k-th and (k+1)-th router
+    probability over the k-th: how near a tie its top-k boundary was."""
+
+    def __init__(self):
+        super().__init__()
+        self.gaps: list = []
+
+
 @contextlib.contextmanager
 def routing_recorded():
     """The expert ids of every ``moe_ffn`` call made in the block, in call
-    order (one (tokens, k) tensor per MoE layer per forward): the port's
-    ``moe.route`` wrapped for the block's duration."""
+    order (one (tokens, k) tensor per MoE layer per forward), as a
+    ``Routing``: the port's ``moe.route`` wrapped for the block's
+    duration."""
+    import torch
     from repro_torch.models import moe
 
-    calls: list = []
+    calls = Routing()
     route = moe.route
 
     def recording(logits, top_k):
         gates, ids = route(logits, top_k)
         calls.append(ids)
+        top = torch.topk(torch.softmax(logits.float(), dim=-1), top_k + 1,
+                         dim=-1).values
+        calls.gaps.append((top[:, -2] - top[:, -1]) / top[:, -2])
         return gates, ids
 
     moe.route = recording
     try:
         yield calls
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def routing_replayed(calls: list, batch: int):
+    """``moe.route`` made to pick, call by call, the experts a recorded
+    forward picked (`calls`: one (batch * S, k) tensor per layer, as
+    ``routing_recorded`` gives them) for the positions each call routes:
+    a prefill takes the next S0 positions of each row, a decode step the
+    next one.  The gates are the call's own probabilities at those
+    experts, renormalised, as ``moe.route`` makes them."""
+    import torch
+    from repro_torch.models import moe
+
+    rows = [c.reshape(batch, -1, c.shape[-1]) for c in calls]
+    taken = [0] * len(rows)
+    n_calls = [0]
+    route = moe.route
+
+    def replay(logits, top_k):
+        layer = n_calls[0] % len(rows)
+        n_calls[0] += 1
+        n = logits.shape[0] // batch
+        ids = rows[layer][:, taken[layer]:taken[layer] + n].reshape(-1, top_k)
+        taken[layer] += n
+        gates = torch.softmax(logits.float(), dim=-1).gather(-1, ids)
+        return gates / gates.sum(dim=-1, keepdim=True), ids
+
+    moe.route = replay
+    try:
+        yield
     finally:
         moe.route = route
 
@@ -1661,10 +1766,117 @@ def dropped_choices(calls: list, batch: int, cfg) -> int:
     return n
 
 
-def family_phase(dev) -> dict:
-    """Phase 4d: deepseek-moe-16b, zamba2-7b and mamba2-130m at full
-    width, one at a time; returns {arch: flash launches of its
-    ``greedy_decode``}."""
+@contextlib.contextmanager
+def blocks_recorded():
+    """The residual stream after every attention block run in the block,
+    in call order (one (B, S, d) tensor per layer per forward): the
+    port's ``transformer.attn_block_apply`` wrapped for the block's
+    duration."""
+    from repro_torch.models import transformer
+
+    outs: list = []
+    apply = transformer.attn_block_apply
+
+    def recording(*args, **kwargs):
+        out = apply(*args, **kwargs)
+        outs.append(out[0].detach())
+        return out
+
+    transformer.attn_block_apply = recording
+    try:
+        yield outs
+    finally:
+        transformer.attn_block_apply = apply
+
+
+def attention_blocks(cfg) -> int:
+    """Attention-block applications of one forward."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.attn_every
+    return cfg.n_layers
+
+
+def tf_config(cfg, arch: str):
+    """`cfg` under the teacher-forced checks' capacity factor (MoE)."""
+    if not cfg.moe:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=TF_CAPACITY[arch]))
+
+
+def f32_check_bytes(cfg, arch: str) -> int:
+    """Bytes the f32 checks of ``full_width_arch`` hold at `cfg`'s depth:
+    the f32 weights (``cfg.n_params()``); the logits at every position
+    of the larger check (both paths of LM_CHECK_BATCH x LM_CHECK_LEN, or
+    the teacher-forced full forward); the prefill's KV and the decode
+    cache at the teacher-forced length; the residual streams both paths
+    record; one layer's largest FFN transient (an MoE's g, u, silu(g) and
+    g * u over the (G, E, C, fe) buffers at the teacher-forced capacity,
+    and its (G, E, C, d) dispatch, expert outputs and gathered choices);
+    and F32_SLACK."""
+    from repro_torch.models.moe import capacity
+
+    nf = cfg.n_frontend_embeds
+    s_chk, s_tf = nf + LM_CHECK_LEN, nf + TF_PROMPT
+    n_attn = attention_blocks(cfg)
+    logits = 4 * cfg.vocab * max(2 * LM_CHECK_BATCH * s_chk,
+                                 TF_BATCH * s_tf)
+    kv = 2 * 2 * 4 * n_attn * TF_BATCH * s_tf * cfg.n_kv_heads * cfg.hd
+    hidden = 2 * 4 * n_attn * LM_CHECK_BATCH * s_chk * cfg.d_model
+    if cfg.moe:
+        c = capacity(tf_config(cfg, arch), s_tf)
+        fe = cfg.moe.d_expert or cfg.d_ff
+        ffn = 4 * TF_BATCH * cfg.moe.n_experts * c * (
+            4 * fe + 3 * cfg.d_model)
+    else:
+        ffn = 4 * 4 * TF_BATCH * s_tf * cfg.d_ff
+    return 4 * cfg.n_params() + logits + kv + hidden + ffn + F32_SLACK
+
+
+def f32_depth(cfg, arch: str, free: int) -> int:
+    """The deepest depth <= ``cfg.n_layers`` whose f32 checks fit in
+    `free` bytes, by ``f32_check_bytes``."""
+    depth = cfg.n_layers
+    while f32_check_bytes(dataclasses.replace(cfg, n_layers=depth),
+                          arch) > free:
+        depth -= 1
+        if depth == 0:
+            raise AssertionError(f"{arch}: not one layer's f32 checks fit "
+                                 f"in {free / 2**30:.1f} GiB")
+    return depth
+
+
+def stub_embeds(cfg, batch: int, dev):
+    """The vlm / audio frontend stub: (batch, n_frontend_embeds, d_model)
+    standard normals from NumPy seed SEED in ``cfg.dtype`` (the shape
+    ``configs.input_specs`` gives them); None for a tokens-only arch."""
+    import numpy as np
+    import torch
+
+    nf = cfg.n_frontend_embeds
+    if not nf:
+        return None
+    x = np.random.default_rng(SEED).standard_normal(
+        (batch, nf, cfg.d_model), dtype=np.float32)
+    return torch.from_numpy(x).to(dev, getattr(torch, cfg.dtype))
+
+
+def full_width_arch(dev, arch: str) -> dict:
+    """One LM of phases 4d / 4e at full width, freed before it returns:
+    (1) the f32 checks at ``f32_depth``: every position's logits and the
+    residual stream after every attention block through the kernel
+    against the plain attention (mamba2-130m: the card against CPU
+    tensors), routing equal on both paths (MoE), then the teacher-forced
+    decode path against the full forward; (2) bf16 ``greedy_decode`` of
+    LM_GEN tokens from LM_BATCH x LM_PROMPT prompts (after the frontend
+    stub's embeds where the arch has them), its flash launches, prefill
+    ms, decode ms a token, weight and peak GiB; (3) the bf16
+    teacher-forced check; (4) one traced prefill.  Returns those
+    numbers."""
+    import gc
+
     import numpy as np
     import torch
     from repro_torch import configs as lm_configs
@@ -1672,11 +1884,31 @@ def family_phase(dev) -> dict:
     from repro_torch.models import modules as lm_modules
     from repro_torch.models import steps as lm_steps
     from repro_torch.models import transformer as lm
+    from repro_torch.tree import leaves
 
     plain_attn = lm_modules.chunked_attention_plain
-    t_phase = time.perf_counter()
-    launches = {}
+    t_arch = time.perf_counter()
+    tag = f"[{arch}]"
+    cfg = lm_configs.get(arch)
+    if arch in DEPTH_CUT:
+        whole = cfg
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT[arch])
+        log(f"{tag} depth cut to {cfg.n_layers} of {whole.n_layers} layers, "
+            f"widths as published (d_model {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}): the whole model's "
+            f"bf16 weights take {2 * whole.n_params() / 1e9:.1f} GB, "
+            f"{cfg.n_layers} layers {2 * cfg.n_params() / 1e9:.1f} GB")
+    cfg_tf = tf_config(cfg, arch)
+    nf = cfg.n_frontend_embeds
     p0 = TF_PROMPT - TF_STEPS
+    attn_free = FAMILY_FLASH[arch] == 0
+    out = {"layers": cfg.n_layers}
+    how = ("chunked prefill {} + {} recurrent decode steps vs the chunked "
+           "full forward" if attn_free else
+           "prefill {} through the kernel + {} decode steps vs a full "
+           "forward with the plain attention").format(p0, TF_STEPS - 1)
+    if nf:
+        how += f", {nf} frontend embeds ahead"
 
     def rel_err(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -1684,193 +1916,297 @@ def family_phase(dev) -> dict:
     def generator():
         return torch.Generator(device=dev).manual_seed(SEED)
 
-    def tokens(cfg, b, s):
+    def tokens(b, s):
         return torch.from_numpy(np.random.default_rng(SEED).integers(
             0, cfg.vocab, (b, s))).to(dev)
 
     def by_layer(calls, n_layers):
         return [calls[i::n_layers] for i in range(n_layers)]
 
-    def teacher_forced(c, params, seq):
-        """The logits at the last TF_STEPS positions of `seq` two ways:
-        a prefill of the first p0 tokens through the kernel, then one
-        decode step per position; and a full forward with the plain
-        attention.  With each path's recorded routing."""
+    def decode_path(c, params, seq, fe):
+        """The logits at the last TF_STEPS positions of `seq`: a prefill
+        of `fe` and the first p0 tokens through the kernel, then one
+        decode step per position; with the recorded routing."""
         serve_step = lm_steps.make_serve_step(c)
-        with routing_recorded() as rec_dec:
-            last, cache = lm_steps.make_prefill_step(c)(params, seq[:, :p0])
-            cache = lm_steps.decode_cache(c, cache, TF_PROMPT, device=dev)
+        with routing_recorded() as rec:
+            last, cache = lm_steps.make_prefill_step(c)(params, seq[:, :p0],
+                                                        fe)
+            cache = lm_steps.decode_cache(c, cache, nf + TF_PROMPT,
+                                          device=dev)
             dec = [last]
             for t in range(TF_STEPS - 1):
                 logits, cache = serve_step(params, cache,
                                            seq[:, p0 + t:p0 + t + 1])
                 dec.append(logits)
             del cache
+        return torch.stack(dec, dim=1), rec
+
+    def teacher_forced(c, params, seq, fe):
+        """``decode_path`` and, at the same positions, a full forward
+        with the plain attention; with each path's recorded routing."""
+        dec, rec_dec = decode_path(c, params, seq, fe)
         with routing_recorded() as rec_full:
-            ref, _, _ = lm.forward(c, params, seq, attention=plain_attn)
-        return torch.stack(dec, dim=1), ref[:, p0 - 1:], rec_dec, rec_full
+            ref, _, _ = lm.forward(c, params, seq, frontend_embeds=fe,
+                                   attention=plain_attn)
+        ref = ref[:, nf + p0 - 1:].clone()
+        return dec, ref, rec_dec, rec_full
 
-    for arch in FAMILY_ARCHS:
-        t_arch = time.perf_counter()
-        cfg = lm_configs.get(arch)
-        tag = f"[{arch}]"
-        cfg_tf = cfg
-        if cfg.moe:
-            cfg_tf = dataclasses.replace(cfg, moe=dataclasses.replace(
-                cfg.moe, capacity_factor=TF_CAPACITY))
-        seq = tokens(cfg, TF_BATCH, TF_PROMPT - 1)
-        attn_free = FAMILY_FLASH[arch] == 0
-        how = ("chunked prefill {} + {} recurrent decode steps vs the "
-               "chunked full forward" if attn_free else
-               "prefill {} through the kernel + {} decode steps vs a full "
-               "forward with the plain attention").format(p0, TF_STEPS - 1)
+    seq = tokens(TF_BATCH, TF_PROMPT - 1)
 
-        # -- f32: the kernel against the plain attention (or the card
-        # against CPU tensors, attention-free), then teacher-forced -------
-        depth = FAMILY_F32_DEPTH[arch] or cfg.n_layers
-        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=depth)
-        p32 = lm.init_params(cfg32, generator(), dev)
-        toks = tokens(cfg, LM_CHECK_BATCH, LM_CHECK_LEN)
-        with routing_recorded() as rec:
-            lk, _, aux_k = lm.forward(cfg32, p32, toks, last_only=True)
-            n_k = len(rec)
-            if attn_free:
-                lp, _, _ = lm.forward(cfg32, tree_to(p32, "cpu"), toks.cpu(),
-                                      last_only=True)
-                other = "the same forward on CPU tensors"
-            else:
-                lp, _, _ = lm.forward(cfg32, p32, toks, last_only=True,
-                                      attention=plain_attn)
-                other = "the plain attention"
-        lp = lp.to(dev)
-        rel32 = rel_err(lk, lp)
-        note = ""
-        if cfg.moe:
-            a = topk_sets(by_layer(rec[:n_k], depth), LM_CHECK_BATCH)
-            b = topk_sets(by_layer(rec[n_k:], depth), LM_CHECK_BATCH)
-            differ = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
-            note = (f"; (token, layer) top-{cfg.moe.top_k} sets that differ "
-                    f"between the paths: {differ} of "
-                    f"{LM_CHECK_BATCH * LM_CHECK_LEN * depth}; aux "
-                    f"{float(aux_k):.6f}")
-        if not (torch.isfinite(lk).all() and rel32 <= LM_F32_REL):
-            raise AssertionError(f"{arch} f32 logits: rel {rel32} against "
-                                 f"{other}")
-        log(f"{tag} f32 {depth} layers, B={LM_CHECK_BATCH} "
-            f"S={LM_CHECK_LEN}: last-position logits against {other}, "
-            f"relative max error {rel32:.3e} (limit {LM_F32_REL}){note}")
-        del lk, lp
-        tf32 = dataclasses.replace(cfg_tf, dtype="float32", n_layers=depth)
-        dec, ref, _, _ = teacher_forced(tf32, p32, seq)
-        rel_tf32 = rel_err(dec, ref)
-        if not (torch.isfinite(dec).all() and rel_tf32 <= LM_F32_REL):
-            raise AssertionError(f"{arch} f32 teacher-forced logits: rel "
-                                 f"{rel_tf32}")
-        # the f32 full forward at full depth: the truth bf16 drifts from
-        truth = ref if depth == cfg.n_layers else None
-        log(f"{tag} teacher-forced f32 {depth} layers B={TF_BATCH} prompt "
-            f"{TF_PROMPT} ({how}): relative max error {rel_tf32:.3e} "
-            f"(limit {LM_F32_REL})")
-        del p32, dec, ref
-        torch.cuda.empty_cache()
+    # -- f32 at the deepest depth that fits: the kernel against the plain
+    # attention (or the card against CPU tensors), then teacher-forced ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    depth = f32_depth(cfg, arch, free)
+    need = f32_check_bytes(dataclasses.replace(cfg, n_layers=depth), arch)
+    if depth < F32_MIN_DEPTH.get(arch, 1):
+        raise AssertionError(f"{arch}: f32 checks fit {depth} layers, "
+                             f"{F32_MIN_DEPTH[arch]} required")
+    out["f32_depth"] = depth
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=depth)
+    p32 = lm.init_params(cfg32, generator(), dev)
+    toks = tokens(LM_CHECK_BATCH, LM_CHECK_LEN)
+    fe32 = stub_embeds(cfg32, LM_CHECK_BATCH, dev)
+    with routing_recorded() as rec, blocks_recorded() as hid:
+        lk, _, aux_k = lm.forward(cfg32, p32, toks, frontend_embeds=fe32)
+        n_k, n_h = len(rec), len(hid)
+        if attn_free:
+            lp, _, _ = lm.forward(
+                cfg32, tree_to(p32, "cpu"), toks.cpu(),
+                frontend_embeds=None if fe32 is None else fe32.cpu())
+            other = "the same forward on CPU tensors"
+        else:
+            lp, _, _ = lm.forward(cfg32, p32, toks, frontend_embeds=fe32,
+                                  attention=plain_attn)
+            other = "the plain attention"
+    lp = lp.to(dev)
+    rel32 = rel_err(lk, lp)
+    per_block = [rel_err(a, b.to(dev)) for a, b in zip(hid[:n_h], hid[n_h:])]
+    del hid
+    note = ""
+    if per_block:
+        worst = max(range(len(per_block)), key=per_block.__getitem__)
+        note += (f"; the residual stream after each of {len(per_block)} "
+                 f"attention blocks: worst {per_block[worst]:.3e} (block "
+                 f"{worst})")
+    if cfg.moe:
+        a = torch.stack(topk_sets(by_layer(rec[:n_k], depth),
+                                  LM_CHECK_BATCH))
+        b = torch.stack(topk_sets(by_layer(rec[n_k:], depth),
+                                  LM_CHECK_BATCH))
+        agree = (a == b).all(-1)                        # (L, B, S)
+        route_share = float(agree.float().mean())
+        note += (f"; (token, layer) top-{cfg.moe.top_k} sets that agree "
+                 f"between the paths: {route_share:.6f} of {agree.numel()} "
+                 f"({int((~agree).sum())} differ); aux {float(aux_k):.6f}")
+        if not bool(agree.all()):
+            raise AssertionError(f"{arch} f32 routing differs between the "
+                                 f"paths at {int((~agree).sum())} (token, "
+                                 f"layer) sets")
+    if not (torch.isfinite(lk).all() and rel32 <= LM_F32_REL
+            and all(r <= LM_F32_REL for r in per_block)):
+        raise AssertionError(f"{arch} f32: logits rel {rel32}, residual "
+                             f"streams {per_block} against {other}")
+    out["f32_rel"] = rel32
+    log(f"{tag} f32 {depth} of {cfg.n_layers} layers (the deepest whose "
+        f"checks fit: {need / 2**30:.1f} GiB of {free / 2**30:.1f} GiB "
+        f"free), B={LM_CHECK_BATCH} S={LM_CHECK_LEN}"
+        + (f" + {nf} frontend embeds" if nf else "")
+        + f": logits at all {lk.shape[1]} positions against {other}, "
+        f"relative max error {rel32:.3e} (limit {LM_F32_REL}){note}")
+    del lk, lp, rec
+    tf32 = dataclasses.replace(cfg_tf, dtype="float32", n_layers=depth)
+    fe_tf = stub_embeds(tf32, TF_BATCH, dev)
+    dec, ref, rec_dec, rec_full = teacher_forced(tf32, p32, seq, fe_tf)
+    rel_tf32 = rel_err(dec, ref)
+    held_rel, note = rel_tf32, ""
+    if cfg.moe:
+        # where the two f32 paths' routing differs, the decode path is
+        # held again under the full forward's routing; every flip in the
+        # lowest layer that has one (the others may follow from it) must
+        # be a tie at f32's precision on the full path
+        a = torch.stack(topk_sets(by_layer(rec_dec, depth), TF_BATCH))
+        b = torch.stack(topk_sets(by_layer(rec_full, depth), TF_BATCH))
+        flip = ~(a == b).all(-1)                        # (L, B, S)
+        gaps = torch.stack([torch.cat(layer).reshape(TF_BATCH, -1) for
+                            layer in by_layer(rec_full.gaps, depth)])
+        n_flip = int(flip.sum())
+        note = (f"; (token, layer) top-{cfg.moe.top_k} sets that differ "
+                f"between the paths: {n_flip} of {flip.numel()}")
+        if n_flip:
+            low = int(flip.any(-1).any(-1).nonzero()[0])
+            first = gaps[low][flip[low]]
+            where = flip.nonzero().tolist()
+            with routing_replayed(rec_full, TF_BATCH):
+                dec_r, _ = decode_path(tf32, p32, seq, fe_tf)
+            held_rel = rel_err(dec_r, ref)
+            note += (f", with each path's own routing {rel_tf32:.3e}, at "
+                     f"(layer, row, position) {where[:8]}"
+                     f"{' ...' if len(where) > 8 else ''}; the lowest "
+                     f"layer's gaps between the k-th and (k+1)-th "
+                     f"probabilities {first.tolist()}; under the full "
+                     f"forward's routing the decode path is "
+                     f"{held_rel:.3e} from it")
+            del dec_r
+            if float(first.max()) > LM_F32_REL:
+                raise AssertionError(f"{arch} f32 routing differs where no "
+                                     f"tie explains it: gaps "
+                                     f"{first.tolist()}")
+    if not (torch.isfinite(dec).all() and held_rel <= LM_F32_REL):
+        raise AssertionError(f"{arch} f32 teacher-forced logits: rel "
+                             f"{held_rel}{note}")
+    # the f32 full forward at full depth: the truth bf16 drifts from
+    truth = ref if depth == cfg.n_layers else None
+    log(f"{tag} teacher-forced f32 {depth} layers B={TF_BATCH} prompt "
+        f"{TF_PROMPT} ({how}): relative max error {held_rel:.3e} "
+        f"(limit {LM_F32_REL}){note}")
+    del p32, dec, ref, rec_dec, rec_full
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # -- bf16: greedy_decode at full width ------------------------------
-        t0 = time.perf_counter()
-        params = lm.init_params(cfg, generator(), dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        prompt = np.random.default_rng(SEED).integers(
-            0, cfg.vocab, (LM_BATCH, LM_PROMPT))
-        prompt_t = torch.from_numpy(prompt).to(dev)
-        lm_steps.greedy_decode(cfg, params, prompt[:, :128], n_steps=2,
-                               max_len=130, device=dev)          # warm-up
-        stats: dict = {}
-        reset_launch_counts()
-        toks_out = lm_steps.greedy_decode(
-            cfg, params, prompt, n_steps=LM_GEN, max_len=LM_PROMPT + LM_GEN,
-            device=dev, stats=stats)
-        counts = launch_counts()
-        launches[arch] = counts["flash_attention_cuda"]
-        if launches[arch] != FAMILY_FLASH[arch]:
-            raise AssertionError(
-                f"{arch}: flash_attention_cuda launched {launches[arch]} "
-                f"times in one prefill, {FAMILY_FLASH[arch]} expected")
-        if toks_out.shape != (LM_BATCH, LM_GEN) or not bool(
-                ((toks_out >= 0) & (toks_out < cfg.vocab)).all()):
-            raise AssertionError(f"{arch} greedy tokens "
-                                 f"{tuple(toks_out.shape)}")
-        decode_ms = stats["decode_s"] * 1e3 / stats["decode_steps"]
-        tok_s = LM_BATCH * LM_GEN / (stats["prefill_s"] + stats["decode_s"])
-        log(f"{tag} bf16 {cfg.n_params() / 1e9:.3f} B parameters drawn on "
-            f"the card in {init_s:.2f} s, "
-            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; "
-            f"greedy_decode B={LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
-            f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
-            f"{decode_ms:.3f} ms/token, {tok_s:.1f} tokens/s; launches "
-            f"{counts}; sample {toks_out[0, :8].tolist()}")
+    # -- bf16: greedy_decode at full width ----------------------------------
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, generator(), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out["weights_gib"] = sum(t.numel() * t.element_size()
+                             for t in leaves(params)) / 2**30
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    prompt_t = torch.from_numpy(prompt).to(dev)
+    fe = stub_embeds(cfg, LM_BATCH, dev)
+    lm_steps.greedy_decode(cfg, params, prompt[:, :128], n_steps=2,
+                           max_len=nf + 130, device=dev,
+                           frontend_embeds=fe)                 # warm-up
+    stats: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    toks_out = lm_steps.greedy_decode(
+        cfg, params, prompt, n_steps=LM_GEN,
+        max_len=nf + LM_PROMPT + LM_GEN, device=dev, stats=stats,
+        frontend_embeds=fe)
+    counts = launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["launches"] = counts["flash_attention_cuda"]
+    if out["launches"] != FAMILY_FLASH[arch]:
+        raise AssertionError(
+            f"{arch}: flash_attention_cuda launched {out['launches']} "
+            f"times in one prefill, {FAMILY_FLASH[arch]} expected")
+    if toks_out.shape != (LM_BATCH, LM_GEN) or not bool(
+            ((toks_out >= 0) & (toks_out < cfg.vocab)).all()):
+        raise AssertionError(f"{arch} greedy tokens "
+                             f"{tuple(toks_out.shape)}")
+    out["prefill_ms"] = stats["prefill_s"] * 1e3
+    out["decode_ms"] = stats["decode_s"] * 1e3 / stats["decode_steps"]
+    tok_s = LM_BATCH * LM_GEN / (stats["prefill_s"] + stats["decode_s"])
+    log(f"{tag} bf16 {cfg.n_params() / 1e9:.3f} B parameters drawn on "
+        f"the card in {init_s:.2f} s, {out['weights_gib']:.2f} GiB of "
+        f"weights; greedy_decode B={LM_BATCH} prompt {LM_PROMPT}"
+        + (f" after {nf} frontend embeds" if nf else "")
+        + f" gen {LM_GEN}: prefill {out['prefill_ms']:.3f} ms, decode "
+        f"{out['decode_ms']:.3f} ms/token, {tok_s:.1f} tokens/s, peak "
+        f"allocated {out['peak_gib']:.2f} GiB; launches {counts}; sample "
+        f"{toks_out[0, :8].tolist()}")
 
-        # -- bf16 teacher-forced ---------------------------------------------
-        dec, ref, rec_dec, rec_full = teacher_forced(cfg_tf, params, seq)
-        held = torch.ones(dec.shape[:2], dtype=torch.bool, device=dev)
-        note = ""
-        if cfg.moe:
-            drops = dropped_choices(rec_dec + rec_full, TF_BATCH, cfg_tf)
-            if drops:
-                raise AssertionError(f"{arch}: {drops} choices dropped under "
-                                     f"capacity_factor {TF_CAPACITY}")
-            a = torch.stack(topk_sets(by_layer(rec_dec, cfg.n_layers),
-                                      TF_BATCH))
-            b = torch.stack(topk_sets(by_layer(rec_full, cfg.n_layers),
-                                      TF_BATCH))
-            agree = (a == b).all(-1)                    # (L, B, S)
-            share = float(agree.float().mean())
-            per_layer = agree.float().mean((1, 2)).tolist()
-            held = agree[:, :, p0 - 1:].all(0)          # (B, STEPS)
-            note = (f"; 0 choices dropped; routing: {share:.4f} of "
-                    f"{agree.numel()} (token, layer) top-{cfg.moe.top_k} "
-                    f"sets agree (floor {ROUTE_AGREE_FLOOR}), by layer "
-                    f"{[round(x, 3) for x in per_layer]}; {int(held.sum())} "
-                    f"of {held.numel()} compared positions agree in every "
-                    f"layer")
-            if share < ROUTE_AGREE_FLOOR or not bool(held.any()):
-                raise AssertionError(f"{arch} routing agreement {share}, "
-                                     f"{int(held.sum())} positions held")
-        diff = (dec - ref).abs().amax(-1)               # (B, STEPS)
-        rel16 = float(diff[held].max() / ref[held].abs().max())
-        rel_all = float(diff.max() / ref.abs().max())
-        agree_tok = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
-        limit = LM_BF16_REL
-        if truth is not None:   # bf16's own distance from the f32 truth
-            drift = rel_err(ref, truth)
+    # -- bf16 teacher-forced -----------------------------------------------
+    dec, ref, rec_dec, rec_full = teacher_forced(
+        cfg_tf, params, seq, stub_embeds(cfg, TF_BATCH, dev))
+    held = torch.ones(dec.shape[:2], dtype=torch.bool, device=dev)
+    note = ""
+    if cfg.moe:
+        drops = dropped_choices(rec_dec + rec_full, TF_BATCH, cfg_tf)
+        if drops:
+            raise AssertionError(f"{arch}: {drops} choices dropped under "
+                                 f"capacity_factor {TF_CAPACITY[arch]}")
+        a = torch.stack(topk_sets(by_layer(rec_dec, cfg.n_layers),
+                                  TF_BATCH))
+        b = torch.stack(topk_sets(by_layer(rec_full, cfg.n_layers),
+                                  TF_BATCH))
+        agree = (a == b).all(-1)                        # (L, B, S)
+        share = float(agree.float().mean())
+        per_layer = agree.float().mean((1, 2)).tolist()
+        held = agree[:, :, nf + p0 - 1:].all(0)         # (B, STEPS)
+        note = (f"; 0 choices dropped under capacity_factor "
+                f"{TF_CAPACITY[arch]}; routing: {share:.4f} of "
+                f"{agree.numel()} (token, layer) top-{cfg.moe.top_k} sets "
+                f"agree (floor {ROUTE_AGREE_FLOOR}), by layer "
+                f"{[round(x, 3) for x in per_layer]}; {int(held.sum())} of "
+                f"{held.numel()} compared positions agree in every layer")
+        if share < ROUTE_AGREE_FLOOR or not bool(held.any()):
+            raise AssertionError(f"{arch} routing agreement {share}, "
+                                 f"{int(held.sum())} positions held")
+    diff = (dec - ref).abs().amax(-1)                   # (B, STEPS)
+    rel16 = float(diff[held].max() / ref[held].abs().max())
+    rel_all = float(diff.max() / ref.abs().max())
+    agree_tok = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    limit = LM_BF16_REL
+    if truth is not None:   # bf16's own distance from the f32 truth
+        drift = rel_err(ref, truth)
+        # an MoE's drift counts the positions whose bf16 routing left
+        # f32's, which its held positions leave out: it raises no limit
+        if not cfg.moe:
             limit = max(LM_BF16_REL, drift)
-            note += (f"; bf16 drift from the f32 full forward: full "
-                     f"{drift:.3e}, decode path {rel_err(dec, truth):.3e}")
-        if not (torch.isfinite(dec).all() and rel16 <= limit):
-            raise AssertionError(f"{arch} bf16 teacher-forced logits: rel "
-                                 f"{rel16} (limit {limit})")
-        log(f"{tag} teacher-forced bf16 B={TF_BATCH} prompt {TF_PROMPT} "
-            f"({how}): relative max error {rel16:.3e} at the "
-            f"{int(held.sum())} held positions (limit {limit:.3e}), "
-            f"{rel_all:.3e} over all {diff.numel()}; argmax agreement "
-            f"{agree_tok:.4f}{note}")
-        del dec, ref, seq, truth
+        note += (f"; bf16 drift from the f32 full forward: full "
+                 f"{drift:.3e}, decode path {rel_err(dec, truth):.3e}")
+    if not (torch.isfinite(dec).all() and rel16 <= limit):
+        raise AssertionError(f"{arch} bf16 teacher-forced logits: rel "
+                             f"{rel16} (limit {limit})")
+    out["bf16_rel"], out["bf16_limit"] = rel16, limit
+    log(f"{tag} teacher-forced bf16 B={TF_BATCH} prompt {TF_PROMPT} "
+        f"({how}): relative max error {rel16:.3e} at the "
+        f"{int(held.sum())} held positions (limit {limit:.3e}), "
+        f"{rel_all:.3e} over all {diff.numel()}; argmax agreement "
+        f"{agree_tok:.4f}{note}")
+    del dec, ref, seq, truth, rec_dec, rec_full
 
-        # -- one traced prefill ---------------------------------------------
-        prefill = lm_steps.make_prefill_step(cfg)
-        prefill(params, prompt_t)
-        wall, busy, by_name = traced(f"{arch} trace",
-                                     lambda: prefill(params, prompt_t),
-                                     launch_counts)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        log(f"{tag} one traced prefill B={LM_BATCH} S={LM_PROMPT}: wall "
-            f"{wall:.3f} ms, device busy {busy:.3f} ms, idle "
-            f"{100 * (1 - busy / wall):.1f}%; by activity: "
-            + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
-        del params, prompt_t
-        torch.cuda.empty_cache()
-        log(f"{tag} {time.perf_counter() - t_arch:.2f} s")
+    # -- one traced prefill ------------------------------------------------
+    prefill = lm_steps.make_prefill_step(cfg)
+    prefill(params, prompt_t, fe)
+    wall, busy, by_name = traced(f"{arch} trace",
+                                 lambda: prefill(params, prompt_t, fe),
+                                 launch_counts)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out["idle"] = 1 - busy / wall
+    log(f"{tag} one traced prefill B={LM_BATCH} S={nf + LM_PROMPT}: wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms, idle "
+        f"{100 * out['idle']:.1f}%; by activity: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+    del params, prompt_t, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} {time.perf_counter() - t_arch:.2f} s")
+    return out
+
+
+def family_phase(dev) -> dict:
+    """Phase 4d: deepseek-moe-16b, zamba2-7b and mamba2-130m at full
+    width, one at a time; returns {arch: ``full_width_arch``'s
+    numbers}."""
+    t_phase = time.perf_counter()
+    res = {arch: full_width_arch(dev, arch) for arch in FAMILY_ARCHS}
     log(f"[families] phase 4d: {time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return res
+
+
+def dense_family_phase(dev, device_line: str) -> dict:
+    """Phase 4e: the six attention configurations the card had not served
+    at full width (olmo-1b, minitron-8b, qwen2.5-14b, musicgen-medium,
+    llava-next-mistral-7b, grok-1 at DEPTH_CUT's 4 layers), one at a
+    time, cheapest first; returns {arch: ``full_width_arch``'s
+    numbers}."""
+    t_phase = time.perf_counter()
+    res = {arch: full_width_arch(dev, arch) for arch in DENSE_ARCHS}
+    for arch, r in res.items():
+        log(f"[dense] {arch} ({r['layers']} layers, bf16) on {device_line}: "
+            f"prefill {r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} "
+            f"ms/token, weights {r['weights_gib']:.2f} GiB, peak "
+            f"{r['peak_gib']:.2f} GiB, {r['launches']} flash launches a "
+            f"prefill, idle {100 * r['idle']:.1f}%; f32 at {r['f32_depth']} "
+            f"layers {r['f32_rel']:.3e}; bf16 teacher-forced "
+            f"{r['bf16_rel']:.3e} (limit {r['bf16_limit']:.3e})")
+    log(f"[dense] phase 4e: {time.perf_counter() - t_phase:.2f} s")
+    return res
 
 
 def lm_train_phase(dev, flash_ms: float) -> dict:
@@ -1933,11 +2269,8 @@ def lm_train_phase(dev, flash_ms: float) -> dict:
         attention application once, and once more in its layer's
         recompute where ``cfg.remat`` checkpoints it (the hybrid's
         weight-shared block is never checkpointed)."""
-        if cfg.family == "ssm":
-            return 0
-        if cfg.family == "hybrid":
-            return cfg.n_layers // cfg.hybrid.attn_every
-        return cfg.n_layers * (2 if cfg.remat else 1)
+        n = attention_blocks(cfg)
+        return n if cfg.family == "hybrid" or not cfg.remat else 2 * n
 
     def remat_held(tag, cfg, params, batch) -> tuple:
         """The loss and gradient of `cfg` at `params` with remat on and
@@ -3993,7 +4326,8 @@ def main() -> int:
     flash_times = {}
     for arch in FLASH_TIMED:
         c = lm_configs.get(arch)
-        shape = (LM_BATCH, c.n_heads, c.n_kv_heads, LM_PROMPT, c.hd)
+        shape = (LM_BATCH, c.n_heads, c.n_kv_heads,
+                 c.n_frontend_embeds + LM_PROMPT, c.hd)
         r = flash_times[arch] = flash_timing(dev, gen, shape)
         log(f"[time] flash_attention_cuda {arch} B={shape[0]} "
             f"H={shape[1]}/{shape[2]} S={shape[3]} D={shape[4]} bf16 causal: "
@@ -4010,7 +4344,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4d. the MoE, SSM and hybrid families at full width --------------
-    family_launches = family_phase(dev)
+    family = family_phase(dev)
+
+    # -- 4e. the six attention configurations at full width -------------
+    dense = dense_family_phase(dev, device_line)
 
     # -- 5./6. the main path: profile -> map -> fuse -> serve ------------
     rng = np.random.default_rng(SEED)
@@ -4701,7 +5038,10 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"],
          "launches_by_path": {
-             LM_ARCH: lm_counts["flash_attention_cuda"], **family_launches,
+             LM_ARCH: lm_counts["flash_attention_cuda"],
+             **{arch if arch not in DEPTH_CUT else
+                f"{arch} ({r['layers']} layers)": r["launches"]
+                for arch, r in {**family, **dense}.items()},
              f"{LM_ARCH} train ({lm_train['steps']} steps)":
                  lm_train["train_launches"],
              f"{LM_ARCH} dry-run check, train step":
@@ -4721,7 +5061,11 @@ def main() -> int:
                  ex["launches"]["hep_shard_demo real step, per rank"]},
          "ms_by_shape": {a: r["ms"] for a, r in flash_times.items()},
          "bound_ms_by_shape": {a: r["bound_ms"]
-                               for a, r in flash_times.items()}},
+                               for a, r in flash_times.items()},
+         "plain_ms_by_shape": {a: r["plain_ms"]
+                               for a, r in flash_times.items()},
+         "library_ms_by_shape": {a: r["library_ms"]
+                                 for a, r in flash_times.items()}},
         {"name": "flash_attention_cuda[return_lse]", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",

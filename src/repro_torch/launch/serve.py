@@ -12,8 +12,14 @@ autoregressively with the KV / SSM cache (greedy).  Every arch of
 Weights are random, from ``torch.Generator`` seed ``--seed`` on the
 device; prompts from NumPy seed ``--seed + 1``.  It runs on the card
 unless ``--device cpu`` is given, and raises without one.  At full
-width deepseek_moe_16b takes 33.8 GB of bf16 weights and zamba2_7b
-13.5 GB; grok_1_314b (633 GB) does not fit one card.
+width the bf16 weights take, as ``chip_smoke.py`` phases 4d and 4e
+measure them on an NVIDIA H100 80GB HBM3 (700 W): mamba2_130m 0.24 GiB,
+olmo_1b 2.19, musicgen_medium 2.54, zamba2_7b 12.57,
+llava_next_mistral_7b 13.49, minitron_8b 14.41, qwen2_5_14b 27.51 and
+deepseek_moe_16b 31.44 GiB; each fits one 80 GB card with its KV cache
+for 4 x 2,048-token prompts.  grok_1_314b's 64 layers take 633 GB and
+fit one card only with the depth cut (its first 4 layers at full width
+take 39.66 GiB, embeddings included); ``--full`` draws all 64.
 """
 
 from __future__ import annotations

@@ -189,13 +189,17 @@ def _sync(dev: torch.device) -> None:
 def greedy_decode(
     cfg: ModelConfig, params, prompt, n_steps: int, max_len: int, *,
     device=None, stats: Optional[dict] = None,
+    frontend_embeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Autoregressive greedy loop: prefill ``prompt`` (B, S) ints, then
     ``n_steps - 1`` single-token decodes; returns the (B, n_steps) int64
     tokens.  Runs on ``device`` (``None`` -> ``cuda``), where ``params``
-    must lie.  With ``stats`` (a dict), the device is synchronised at the
-    phase boundaries and ``prefill_s``, ``decode_s`` and
-    ``decode_steps`` are filled in."""
+    must lie.  ``frontend_embeds`` (B, F, d_model), where given, are
+    prefilled ahead of the prompt (the vlm / audio stubs); the cache
+    then holds them too, so ``max_len`` counts F + S + n_steps.  With
+    ``stats`` (a dict), the device is synchronised at the phase
+    boundaries and ``prefill_s``, ``decode_s`` and ``decode_steps`` are
+    filled in."""
     dev = resolve_device(device)
     if params["embed"].device != dev:
         raise ValueError(f"params lie on {params['embed'].device}, "
@@ -203,10 +207,12 @@ def greedy_decode(
     if isinstance(prompt, np.ndarray):
         prompt = torch.from_numpy(prompt)
     prompt = prompt.to(device=dev, dtype=torch.int64)
+    if frontend_embeds is not None:
+        frontend_embeds = frontend_embeds.to(dev)
     prefill = make_prefill_step(cfg)
     serve = make_serve_step(cfg)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt)
+    logits, cache = prefill(params, prompt, frontend_embeds)
     full = decode_cache(cfg, cache, max_len, device=dev)
     del cache
 

@@ -314,13 +314,21 @@ FLASH_CASES = {
 TC_CASES = {
     **{f"d{d}-g{g}-{'causal' if c else 'full'}":
        (2, 2 * g, 2, 200, 200, d, c, None)
-       for d in (32, 64, 112, 128) for g in (1, 2, 7)
+       for d in (32, 64, 112, 128) for g in (1, 2, 4, 5, 6, 7)
        for c in (True, False)},
     "sq1-sk2048": (4, 14, 2, 1, 2048, 64, True, None),
     "sq1-sk2048-d128": (1, 8, 1, 1, 2048, 128, True, None),
     "sq1-sk2048-d112": (1, 32, 32, 1, 2048, 112, True, None),
     "zamba2-like-d112": (1, 32, 32, 300, 300, 112, True, None),
     "ragged-sq-sk-full": (1, 4, 4, 77, 130, 64, False, None),
+    # the full configs' prefill heads at one row of the batch: llava
+    # (group 4) and grok-1 (group 6) at llava's S 2,624 (576 frontend
+    # embeds + 2,048 tokens), qwen2.5-14b (group 5) and musicgen (MHA 24,
+    # D 64) at musicgen's 2,112 (64 + 2,048); no tile multiple of 128
+    "llava-d128-g4-s2624": (1, 32, 8, 2624, 2624, 128, True, None),
+    "qwen2.5-d128-g5-s2112": (1, 40, 8, 2112, 2112, 128, True, None),
+    "grok-d128-g6-s2624": (1, 48, 8, 2624, 2624, 128, True, None),
+    "musicgen-d64-mha24-s2112": (1, 24, 24, 2112, 2112, 64, True, None),
 }
 
 
@@ -451,6 +459,40 @@ def test_chunked_attention_on_the_card_launches_once(dev):
     want = T_MOD.chunked_attention_plain(q, k, v, causal=True, q_chunk=32,
                                          kv_chunk=32)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["llava_next_mistral_7b", "musicgen_medium"])
+def test_prefill_with_frontend_embeds_launches_once_a_layer(dev, arch):
+    """The frontend stub's embeds ahead of the tokens (a smoke config at
+    head dim 32, 40 embeds): each layer's chunked_attention launches
+    kernel 3 once over embeds and tokens together, and the f32 logits at
+    every position equal the plain attention's (1e-4, kernel 3's f32
+    tolerance); so does a decode step against the prefilled cache, whose
+    length counts the embeds."""
+    from repro_torch.models import steps as T_S
+    from repro_torch.models import transformer as T_T
+
+    cfg, params = _smoke_params(arch, head_dim=32, n_frontend_embeds=40)
+    params = _to(params, dev)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 70))).to(dev)
+    fe = torch.from_numpy(rng.standard_normal(
+        (2, 40, cfg.d_model), dtype=np.float32)).to(dev)
+    before = flash_attention_cuda.launches
+    got, cache, _ = T_T.forward(cfg, params, toks, frontend_embeds=fe,
+                                return_cache=True)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    assert got.shape == (2, 110, cfg.vocab) and cache["len"] == 110
+    want, _, _ = T_T.forward(cfg, params, toks, frontend_embeds=fe,
+                             attention=T_MOD.chunked_attention_plain)
+    assert _rel(got, want.cpu()) <= 1e-4
+    full = T_S.decode_cache(cfg, cache, 112, device=dev)
+    nxt = toks[:, :1]
+    dec, _ = T_S.make_serve_step(cfg)(params, full, nxt)
+    seq = torch.cat([toks, nxt], dim=1)
+    ref, _, _ = T_T.forward(cfg, params, seq, frontend_embeds=fe,
+                            attention=T_MOD.chunked_attention_plain)
+    assert _rel(dec, ref[:, -1].cpu()) <= 1e-4
 
 
 @pytest.mark.parametrize("what", ["float16", "head_dim_16", "head_dim_96"])

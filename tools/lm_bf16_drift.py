@@ -65,7 +65,8 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.moe:   # nothing dropped on either path
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=chip_smoke.TF_CAPACITY))
+            cfg.moe, capacity_factor=chip_smoke.TF_CAPACITY[
+                configs.canonical(args.arch)]))
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     B, P, n = args.batch, args.prompt, args.steps
     p0 = P - n
