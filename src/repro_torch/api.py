@@ -57,6 +57,7 @@ import dataclasses
 import math
 from typing import Sequence
 
+from repro_torch import spans
 from repro_torch.core.mapper import (
     EfficientConfiguration,
     map_efficient_configuration,
@@ -188,7 +189,8 @@ def plan_single(
     instead of the fixed 8; ``fuse=True`` additionally profiles
     segment-scope variants over the mapping's device segments and
     records the winners (:func:`fuse_mapping`).  Measured sweeps run
-    on `device` (``None`` -> ``cuda``)."""
+    on `device` (``None`` -> ``cuda``).  With :mod:`repro_torch.spans`
+    recording, ``fuse_mapping`` is the span ``plan.fuse``."""
     store = _as_store(store, device=device)
     profile = _profile_fn(
         autotune=autotune, configs=configs, repeats=repeats,
@@ -202,11 +204,16 @@ def plan_single(
         table = profile(model, packed, batch_sizes=batch_sizes)
     config = map_model(table, policy=policy, configs=configs)
     if fuse:
-        config = fuse_mapping(
-            model, packed, table, config,
-            registry=registry, time_source=time_source, repeats=repeats,
-            device=device,
-        )
+        sp = spans.open("plan.fuse") if spans.on else None
+        try:
+            config = fuse_mapping(
+                model, packed, table, config,
+                registry=registry, time_source=time_source,
+                repeats=repeats, device=device,
+            )
+        finally:
+            if sp is not None:
+                spans.close(sp)
         if store is not None:
             store.save_profile(table)   # now carries the segment rows
     if store is not None:
@@ -651,7 +658,10 @@ class Deployment:
     def stats(self) -> dict:
         """One nested dict for the whole deployment — per-tenant
         admission/served counters, ledger occupancy where metered,
-        and per-host pool state in cluster mode."""
+        and per-host pool state in cluster mode.  In single mode also
+        the engine's micro-batch and row counters, the profile store's
+        hits and misses (with a store), and ``compiles``, the kernel
+        builds' ``nvcc`` runs in this process."""
         if self.cluster is not None:
             return self.cluster.stats()
         if self.router is not None:
@@ -664,13 +674,25 @@ class Deployment:
                     for r in self.router.quality.journal
                 ]
             return out
+        from repro_torch.kernels import build
+
         e = self._serving()
         out = {
             "mode": "single",
             "served": e.served,
             "steps": e.steps,
             "swaps": e.swaps,
+            "empty_steps": e.empty_steps,
+            "microbatches": e.microbatches,
+            "real_rows": e.real_rows,
+            "pad_rows": e.pad_rows,
+            "compiles": build.compiles,
         }
+        store = self._knobs.get("store")
+        if store is not None:
+            counts = store.stats()
+            out.update(store_hits=counts["hits"],
+                       store_misses=counts["misses"])
         if hasattr(e, "set_level"):
             out.update(
                 level=e.level,

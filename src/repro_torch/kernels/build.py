@@ -14,6 +14,8 @@ The wrappers pass ``data_ptr()`` pointers and the current stream's
 handle; each C entry point launches on that stream and returns
 ``cudaGetLastError()``, which the wrapper turns into an exception.
 
+``compiles`` counts the ``nvcc`` runs of this process.
+
 Nothing here runs at import time: the tests import every module on
 machines without ``nvcc``.
 """
@@ -47,6 +49,7 @@ _libs: dict = {}
 # compiler output of the last build (ptxas register/smem report)
 build_log: dict = {}
 build_seconds: float | None = None
+compiles = 0                 # nvcc runs in this process
 
 
 def _nvcc() -> str:
@@ -75,7 +78,7 @@ def build_all() -> dict:
     """Compile every stale ``csrc/*.cu`` in parallel; returns
     {stem: library path}.  Raises with the compiler's output if any
     source fails to build."""
-    global build_seconds
+    global build_seconds, compiles
     t0 = time.perf_counter()
     sources = sorted(CSRC.glob("*.cu"))
     targets = {src.stem: _target(src) for src in sources}
@@ -91,6 +94,7 @@ def build_all() -> dict:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
         )))
+    compiles += len(procs)
     failed = []
     for stem, dst, tmp, proc in procs:
         out, _ = proc.communicate()

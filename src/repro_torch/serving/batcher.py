@@ -16,7 +16,9 @@ under test.
 **Thread-safety.**  :meth:`MicroBatcher.submit` may be called from
 any number of threads concurrently — the queue is lock-protected and
 FIFO by submission timestamp (the clock is read under the lock, so
-queue order and ``submit_t`` order agree).  ``next_batch``/``drain``
+queue order and ``submit_t`` order agree), and each request takes its
+``id``, a sequence number, under the same lock: a micro-batch is a run
+of consecutive ids.  ``next_batch``/``drain``
 are also lock-safe (two drainers never pop the same request), but the
 serving engine's step path is single-threaded by contract — see
 ``repro_torch.serving.engine``.  The fleet router depends on exactly
@@ -26,6 +28,7 @@ this split: client threads submit, one dispatch thread drains.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
 from collections import deque
@@ -33,14 +36,18 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch import spans
+
 
 @dataclasses.dataclass
 class Request:
     """One in-flight example.  ``wait()`` blocks until the engine
-    completes it; ``submit_t``/``done_t`` bound its serving latency."""
+    completes it; ``submit_t``/``done_t`` bound its serving latency;
+    ``id`` is its batcher's submit sequence number."""
 
     x: np.ndarray
     submit_t: float
+    id: int = -1
     result: np.ndarray | None = None
     error: BaseException | None = None
     done_t: float | None = None
@@ -136,6 +143,7 @@ class MicroBatcher:
         self._clock = clock
         self._lock = threading.Lock()
         self._queue: deque = deque()
+        self._ids = itertools.count()   # each Request's id
 
     def submit(self, x) -> Request:
         x = np.asarray(x)
@@ -144,7 +152,8 @@ class MicroBatcher:
         # oldest-request age check could read a non-head timestamp and
         # a batch's coalescing deadline would jitter by the race window
         with self._lock:
-            req = Request(x=x, submit_t=self._clock())
+            # positional: the dataclass's keyword path costs more
+            req = Request(x, self._clock(), next(self._ids))
             self._queue.append(req)
         return req
 
@@ -167,11 +176,15 @@ class MicroBatcher:
     def next_batch(self, *, force: bool = False) -> MicroBatch | None:
         """Pop up to ``max_batch`` requests into a padded MicroBatch;
         None when nothing is ready (``force`` flushes a partial batch
-        regardless of its age)."""
+        regardless of its age).  Recording, each micro-batch is a
+        ``batcher.drain`` span: first request id, real rows."""
         if not force and not self.ready():
             return None
+        sp = spans.open("batcher.drain") if spans.on else None
         with self._lock:
             if not self._queue:
+                if sp is not None:
+                    spans.discard(sp)
                 return None
             take = min(len(self._queue), self.max_batch)
             reqs = tuple(self._queue.popleft() for _ in range(take))
@@ -180,6 +193,8 @@ class MicroBatcher:
         if target > len(reqs):
             pad = np.zeros((target - len(reqs),) + xs.shape[1:], xs.dtype)
             xs = np.concatenate([xs, pad])
+        if sp is not None:
+            spans.close(sp, reqs[0].id, len(reqs))
         return MicroBatch(requests=reqs, x=xs, n_real=len(reqs))
 
     def drain(self, *, force: bool = True) -> list:

@@ -27,6 +27,14 @@ The adaptive loop around this primitive (telemetry -> drift ->
 corrected table -> re-mapped configuration) lives in
 ``repro_torch.adapt``.
 
+**Counters and spans.**  Besides ``served``, ``steps`` and ``swaps``
+the engine counts ``microbatches``, their ``real_rows`` and
+``pad_rows``, and ``empty_steps`` (steps that found nothing ready).
+With :mod:`repro_torch.spans` recording, a non-empty step is an
+``engine.step`` span (micro-batches, real rows) holding the batcher's
+``batcher.drain`` spans, the pipeline's spans and one
+``engine.complete`` span per micro-batch (micro-batch, rows).
+
 **Threading contract.**  ``submit()`` is thread-safe — any number of
 client threads may enqueue concurrently (the ``MicroBatcher`` queue is
 lock-protected and FIFO by submission order), and ``Request.wait()``
@@ -39,6 +47,7 @@ from __future__ import annotations
 import time
 from typing import Sequence
 
+from repro_torch import spans
 from repro_torch.bnn.models import BNNModel
 from repro_torch.core.mapper import EfficientConfiguration
 from repro_torch.device import resolve_device
@@ -109,6 +118,10 @@ class ServingEngine:
         self.served = 0
         self.steps = 0               # non-empty steps (batch boundaries)
         self.swaps = 0
+        self.empty_steps = 0
+        self.microbatches = 0
+        self.real_rows = 0
+        self.pad_rows = 0            # zero rows padding micro-batches
         self._in_step = False
         self._pending_swap: EfficientConfiguration | None = None
 
@@ -176,51 +189,75 @@ class ServingEngine:
         An empty queue is a no-op even under ``force`` — the batcher
         never fabricates a zero batch to pad-and-run — and a pending
         swap still applies."""
-        batches = self.batcher.drain(force=force)
-        if not batches:
-            self._drain_pending_swap()
-            return 0
-
-        def complete(i, out):
-            mb = batches[i]
-            now = self._clock()
-            for j, req in enumerate(mb.requests):
-                req.complete(out[j], now)   # pad rows out[n_real:] dropped
-
-        observer = None
-        if self.telemetry is not None:
-            observer = self.telemetry.sample()
-        if self.observer is not None:
-            observer = _tee(self.observer, observer)
-        self._in_step = True
+        sp = spans.open("engine.step") if spans.on else None
+        batches, done = (), 0
         try:
-            self.pipeline.run_pipelined(
-                [mb.x for mb in batches],
-                on_complete=complete,
-                observer=observer,
-            )
-        except BaseException as e:
-            # requests already popped off the queue must not be lost:
-            # fail every not-yet-completed one so waiters see the error.
-            # A pending swap stays pending (applied at the next batch
-            # boundary) — applying it here could raise a build error
-            # that masks the serving failure being diagnosed
-            now = self._clock()
+            batches = self.batcher.drain(force=force)
+            if not batches:
+                self.empty_steps += 1
+                if sp is not None:
+                    spans.discard(sp)
+                    sp = None
+                self._drain_pending_swap()
+                return 0
+            padded = 0
             for mb in batches:
-                for req in mb.requests:
-                    if req.done_t is None:
-                        req.fail(e, now)
-            raise
+                done += mb.n_real
+                padded += mb.padded_size
+            self.microbatches += len(batches)
+            self.real_rows += done
+            self.pad_rows += padded - done
+
+            def complete(i, out):
+                mb = batches[i]
+                cp = (spans.open("engine.complete", i, mb.n_real)
+                      if spans.on else None)
+                now = self._clock()
+                for j, req in enumerate(mb.requests):
+                    req.complete(out[j], now)  # pad rows out[n_real:] dropped
+                if cp is not None:
+                    spans.close(cp)
+
+            observer = None
+            if self.telemetry is not None:
+                observer = self.telemetry.sample()
+            if self.observer is not None:
+                observer = _tee(self.observer, observer)
+            self._in_step = True
+            try:
+                self.pipeline.run_pipelined(
+                    [mb.x for mb in batches],
+                    on_complete=complete,
+                    observer=observer,
+                )
+            except BaseException as e:
+                # requests already popped off the queue must not be
+                # lost: fail every not-yet-completed one so waiters see
+                # the error.  A pending swap stays pending (applied at
+                # the next batch boundary) — applying it here could
+                # raise a build error that masks the serving failure
+                # being diagnosed
+                now = self._clock()
+                for mb in batches:
+                    for req in mb.requests:
+                        if req.done_t is None:
+                            req.fail(e, now)
+                raise
+            finally:
+                self._in_step = False
+            self.served += done
+            self.steps += 1
+            # the batch boundary: a swap requested mid-step lands here,
+            # after the step's work is fully accounted — a failed
+            # pipeline build raises from step() but never corrupts
+            # served/steps
+            self._drain_pending_swap()
+            return done
         finally:
-            self._in_step = False
-        done = sum(mb.n_real for mb in batches)
-        self.served += done
-        self.steps += 1
-        # the batch boundary: a swap requested mid-step lands here,
-        # after the step's work is fully accounted — a failed pipeline
-        # build raises from step() but never corrupts served/steps
-        self._drain_pending_swap()
-        return done
+            # however the step ends, so that no later span on this
+            # thread takes a dead step for its parent
+            if sp is not None:
+                spans.close(sp, len(batches), done)
 
     def _drain_pending_swap(self) -> None:
         if self._pending_swap is not None:

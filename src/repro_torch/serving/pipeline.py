@@ -25,16 +25,24 @@ returns garbage: the buffer is always pinned and always synchronised.)
 All arithmetic is int32/bool, so pipelined, serial, and fused
 execution are bit-exact for the same inputs.
 
-**Observer hook.**  Both drivers accept an ``observer`` — a callable
-``observer(seg_index, segment, seconds, batch)`` fired once per
-(micro-batch, segment) execution with the segment's wall time for a
-``batch``-row micro-batch.  With ``observer=None`` the drivers are
-exactly the un-instrumented code paths.  When observing, the pipelined
-driver waits for each device segment's own output (an event recorded
-on the serving stream right after the segment's launches) to read a
-true wall time, which serializes that wave's device/host overlap.  It
-never synchronises the whole device: work queued on other streams is
-not billed to the segment.
+**Observer hook.**  :meth:`SegmentPipeline.run_pipelined` accepts an
+``observer`` — a callable ``observer(seg_index, segment, seconds,
+batch)`` fired once per (micro-batch, segment) execution with the
+segment's wall time for a ``batch``-row micro-batch.  When observing,
+it waits for each device segment's own output (an event recorded on the
+serving stream right after the segment's launches) to read a true wall
+time, which serializes that wave's device/host overlap.  It never
+synchronises the whole device: work queued on other streams is not
+billed to the segment.
+
+**Spans.**  With :mod:`repro_torch.spans` recording, ``run_pipelined``
+records, without waiting on the card: ``pipeline.stage`` (an input made
+a tensor and queued H2D; micro-batch, segment index),
+``pipeline.launch`` (a device segment's host path up to its launches'
+return; micro-batch, segment index), ``pipeline.host`` (a host segment;
+the same), ``pipeline.download`` (pinned buffer, D2H and event queued;
+micro-batch) and ``pipeline.d2h_wait`` (the host blocked on that event;
+micro-batch).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.bnn.models import BNNModel
 from repro_torch.core.mapped_model import build_node_fns, to_device
 from repro_torch.core.mapper import EfficientConfiguration
@@ -128,26 +137,26 @@ class SegmentPipeline:
         return _Download(host, done)
 
     @staticmethod
-    def _on_host(x) -> torch.Tensor:
-        """The host tensor behind `x`, waiting for its D2H if pending."""
+    def _on_host(x, i: int) -> torch.Tensor:
+        """The host tensor behind `x` (micro-batch `i`), waiting for its
+        D2H if pending."""
         if isinstance(x, _Download):
+            sp = spans.open("pipeline.d2h_wait", i) if spans.on else None
             x.done.synchronize()
+            if sp is not None:
+                spans.close(sp)
             return x.host
         return x
 
     # -- serial reference: one micro-batch at a time, Python thread
     #    blocks at every segment boundary (no overlap) ---------------
-    def run_serial(self, x_words, *, observer: Callable | None = None):
+    def run_serial(self, x_words):
         x = torch.as_tensor(np.asarray(x_words))
-        batch = x.shape[0]
-        for s, (seg, fn) in enumerate(self.segment_fns):
-            t0 = time.perf_counter() if observer is not None else 0.0
+        for seg, fn in self.segment_fns:
             if seg.on_device:
                 x = fn(to_device(x, self.device)).cpu()  # D2H syncs
             else:
                 x = fn(x)
-            if observer is not None:
-                observer(s, seg, time.perf_counter() - t0, batch)
         return x.numpy()
 
     # -- pipelined driver over a micro-batch stream ------------------
@@ -178,8 +187,11 @@ class SegmentPipeline:
         def stage(i):
             # double-buffered H2D: the upload is queued a wave before
             # micro-batch i first executes
+            sp = spans.open("pipeline.stage", i) if spans.on else None
             x = torch.as_tensor(np.asarray(inputs[i]))
             staged[i] = to_device(x, self.device) if first_on_device else x
+            if sp is not None:
+                spans.close(sp)
 
         stage(0)
         for w in range(n + k - 1):
@@ -198,15 +210,23 @@ class SegmentPipeline:
                 x = staged[i] if s == 0 else state[i]
                 staged[i] = None        # keep only ~2 live buffers
                 if x.device != self.device:
+                    sp = (spans.open("pipeline.stage", i, s) if spans.on
+                          else None)
                     x = to_device(x, self.device)
-                if observer is None:
-                    out = fn(x)
-                else:
-                    t0 = time.perf_counter()
-                    out = fn(x)
+                    if sp is not None:
+                        spans.close(sp)
+                t0 = time.perf_counter() if observer is not None else 0.0
+                sp = spans.open("pipeline.launch", i, s) if spans.on else None
+                out = fn(x)
+                if sp is not None:
+                    spans.close(sp)
+                if observer is not None:
                     self._wait_for_segment()
                     observer(s, seg, time.perf_counter() - t0, x.shape[0])
+                sp = spans.open("pipeline.download", i) if spans.on else None
                 state[i] = self._download(out)
+                if sp is not None:
+                    spans.close(sp)
             # host advances: reading a device result waits for its D2H
             for i, s in active:
                 seg, fn = segs[s]
@@ -214,19 +234,20 @@ class SegmentPipeline:
                     continue
                 x = staged[i] if s == 0 else state[i]
                 staged[i] = None
-                if observer is None:
-                    state[i] = fn(self._on_host(x))
-                else:
-                    # the timing includes the wait for the upstream D2H —
-                    # the host stage pays it un-instrumented too
-                    t0 = time.perf_counter()
-                    xh = self._on_host(x)
-                    state[i] = fn(xh)
+                # an observer's timing includes the wait for the upstream
+                # D2H — the host stage pays it un-observed too
+                t0 = time.perf_counter() if observer is not None else 0.0
+                xh = self._on_host(x, i)
+                sp = spans.open("pipeline.host", i, s) if spans.on else None
+                state[i] = fn(xh)
+                if sp is not None:
+                    spans.close(sp)
+                if observer is not None:
                     observer(s, seg, time.perf_counter() - t0, xh.shape[0])
             # completions: micro-batch i leaves the pipeline
             for i, s in active:
                 if s == k - 1:
-                    outputs[i] = self._on_host(state[i]).numpy()
+                    outputs[i] = self._on_host(state[i], i).numpy()
                     state[i] = None
                     if on_complete is not None:
                         on_complete(i, outputs[i])

@@ -263,6 +263,29 @@ def test_deployment_single_serves_bit_exact():
     assert s["mode"] == "single" and s["served"] == 8
 
 
+def test_deployment_single_stats_report_rows_store_and_builds(tmp_path):
+    from repro_torch.kernels import build
+
+    m, packed, _, _, xw, ref = _small()
+    store = T_S.ProfileStore(f"dir://{tmp_path}", device="cpu")
+    _plan((m, packed), store=store)            # cold: profiles
+    dep = _plan((m, packed), store=store).serve(max_batch=4)
+    reqs = [dep.submit(xw[i]) for i in range(6)]
+    assert dep.drain() == 6                    # 4, then 2 padded to 4
+    assert dep.step() == 0
+    for i, r in enumerate(reqs):
+        np.testing.assert_array_equal(np.asarray(r.result), ref[i])
+    s = dep.stats()
+    assert (s["microbatches"], s["real_rows"], s["pad_rows"],
+            s["empty_steps"]) == (2, 6, 2, 1)
+    counts = store.stats()
+    assert (s["store_hits"], s["store_misses"]) == (
+        counts["hits"], counts["misses"])
+    assert s["store_hits"] >= 1 and s["store_misses"] >= 1
+    assert s["compiles"] == build.compiles
+    assert "store_hits" not in _plan((m, packed)).serve().stats()
+
+
 def test_deployment_fleet_equal_to_reference_and_bit_exact(tmp_path):
     m, packed, r, r_packed, xw, ref = _small()
     port, r_store = _seeded(tmp_path, [(m, r)])
