@@ -660,8 +660,11 @@ class Deployment:
         admission/served counters, ledger occupancy where metered,
         and per-host pool state in cluster mode.  In single mode also
         the engine's micro-batch and row counters, the profile store's
-        hits and misses (with a store), and ``compiles``, the kernel
-        builds' ``nvcc`` runs in this process."""
+        hits and misses (with a store), the device segments served by
+        captured graphs and eagerly (``graph_captures``,
+        ``graph_replays``, ``eager_device_segments``), and
+        ``compiles``, the kernel builds' ``nvcc`` runs in this
+        process."""
         if self.cluster is not None:
             return self.cluster.stats()
         if self.router is not None:
@@ -686,6 +689,7 @@ class Deployment:
             "microbatches": e.microbatches,
             "real_rows": e.real_rows,
             "pad_rows": e.pad_rows,
+            **dataclasses.asdict(e.graph_counts),
             "compiles": build.compiles,
         }
         store = self._knobs.get("store")

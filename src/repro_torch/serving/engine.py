@@ -11,8 +11,9 @@
 them *together* through the segment pipeline, so a burst of traffic is
 where the pipelining pays: the host segments of one micro-batch
 overlap the device segments of the previous one.  Each request is
-completed (result + latency timestamp) the moment its micro-batch's
-output reaches the host, not when the whole wave-train finishes.
+completed (result + latency timestamp) the moment the pipeline reads
+its micro-batch's output on the host (one replay later where a graph
+serves the last segment), not when the whole wave-train finishes.
 ``step(force=True)`` on an idle engine (empty queue) is a no-op:
 nothing is padded, nothing runs, pending swaps still apply.
 
@@ -29,7 +30,10 @@ corrected table -> re-mapped configuration) lives in
 
 **Counters and spans.**  Besides ``served``, ``steps`` and ``swaps``
 the engine counts ``microbatches``, their ``real_rows`` and
-``pad_rows``, and ``empty_steps`` (steps that found nothing ready).
+``pad_rows``, and ``empty_steps`` (steps that found nothing ready);
+``graph_counts`` (:class:`~repro_torch.serving.pipeline.GraphCounts`)
+adds up, over every pipeline the engine builds, the graphs captured,
+their replays and the device segments run eagerly.
 With :mod:`repro_torch.spans` recording, a non-empty step is an
 ``engine.step`` span (micro-batches, real rows) holding the batcher's
 ``batcher.drain`` spans, the pipeline's spans and one
@@ -52,7 +56,7 @@ from repro_torch.bnn.models import BNNModel
 from repro_torch.core.mapper import EfficientConfiguration
 from repro_torch.device import resolve_device
 from repro_torch.serving.batcher import MicroBatcher, Request
-from repro_torch.serving.pipeline import SegmentPipeline
+from repro_torch.serving.pipeline import GraphCounts, SegmentPipeline
 
 
 def _tee(always, sampled):
@@ -105,6 +109,7 @@ class ServingEngine:
         self.packed_params = packed_params
         self.config = config
         self._device = resolve_device(device)
+        self.graph_counts = GraphCounts()   # every pipeline adds to it
         self.pipeline = self._build_pipeline(config)
         self.batcher = MicroBatcher(
             max_batch=max_batch,
@@ -130,7 +135,8 @@ class ServingEngine:
         Subclass seam: a caller may wrap the returned pipeline's segment
         callables, e.g. to inject synthetic contention into them."""
         return SegmentPipeline(
-            self.model, self.packed_params, config, device=self._device
+            self.model, self.packed_params, config, device=self._device,
+            counts=self.graph_counts,
         )
 
     def submit(self, x_words_one) -> Request:

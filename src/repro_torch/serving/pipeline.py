@@ -10,19 +10,50 @@ host <-> device, so execution is a chain
 chain as a software pipeline: micro-batch ``i`` enters at wave ``i``
 and advances one segment per wave, so in any wave at most one
 micro-batch occupies each segment.  Within a wave, device segments are
-dispatched first — their kernels are queued on the current CUDA stream
-and the Python thread returns at once — and host segments run
-afterwards on CPU tensors, overlapping the host work of micro-batch
-*i+1* with the queued device work of micro-batch *i*.  H2D uploads are
-double-buffered: micro-batch *i+1*'s input is copied from pinned host
-memory with a non-blocking copy while wave *i* is still executing.  A
-device segment's output is copied back with a non-blocking copy into
-pinned host memory and a ``torch.cuda.Event`` recorded behind it; the
-host synchronises that event only when it reads the result a wave
-later.  (A non-blocking copy into pageable memory, read before a sync,
+dispatched first — their work is queued on the current CUDA stream and
+the Python thread returns at once — and host segments run afterwards on
+CPU tensors, overlapping the host work of micro-batch *i+1* with the
+queued device work of micro-batch *i*.
+
+**The graph path.**  A device segment that is one fused launch of a
+segment-scope kernel (its plan node carries a ``fused_variant``), on a
+CUDA device, with the callable this pipeline built (not one wrapped
+after the build), is served by captured CUDA graphs.  At the first
+micro-batch of each batch size the pipeline runs one eager launch of
+that size (it loads the kernel library and caches what the launch asks
+of the card), then captures a *ring* of ``RING_SLOTS`` slots for it.
+A slot holds a pinned host input, the device input, a pinned host
+output, an event and a graph over H2D -> the segment's launch -> D2H;
+the launch's output and scratch live in the graph's private pool.  A
+micro-batch is served by copying its words into the next slot's pinned
+input, replaying the slot's graph and recording its event: no
+allocation, no Python launch path.  Its result is read — the event
+waited on, then the rows **copied out** of the slot into an array of
+the caller's own — only after the next micro-batch's replay is queued,
+so the card runs one micro-batch while the host finishes the previous
+one.  The copy-out is what lets the slot be reused: a caller keeps its
+answers as long as it likes without holding pinned memory, and a slot
+is written again only after the result it held has been read, which the
+one-wave lag guarantees with two slots.  A capture launches nothing:
+the wrappers' launch counters (``repro_torch.kernels.launch_counts``)
+are put back after it, and each replay adds what its capture counted,
+so ``segment_cuda.launches`` still counts one per micro-batch.
+
+Every other device segment runs **eagerly**, as it always did:
+per-layer device segments, callables wrapped after the build (e.g. to
+inject contention), and every segment on a CPU device.  Its input is
+uploaded from pinned host memory with a non-blocking copy a wave ahead
+(double-buffered), and its output is copied back with a non-blocking
+copy into a fresh pinned buffer with a ``torch.cuda.Event`` recorded
+behind it; the host synchronises that event only when it reads the
+result.  (A non-blocking copy into pageable memory, read before a sync,
 returns garbage: the buffer is always pinned and always synchronised.)
 
-All arithmetic is int32/bool, so pipelined, serial, and fused
+``counts`` (:class:`GraphCounts`) counts graphs captured, their
+replays and device segments run eagerly; an engine passes one object
+to every pipeline it builds, so they survive swaps.
+
+All arithmetic is int32/bool, so pipelined, serial, graphed and fused
 execution are bit-exact for the same inputs.
 
 **Observer hook.**  :meth:`SegmentPipeline.run_pipelined` accepts an
@@ -30,19 +61,22 @@ execution are bit-exact for the same inputs.
 batch)`` fired once per (micro-batch, segment) execution with the
 segment's wall time for a ``batch``-row micro-batch.  When observing,
 it waits for each device segment's own output (an event recorded on the
-serving stream right after the segment's launches) to read a true wall
-time, which serializes that wave's device/host overlap.  It never
+serving stream right after the segment's launches, or after its
+replay, whose time then includes its copies) to read a true wall time,
+which serializes that wave's device/host overlap.  It never
 synchronises the whole device: work queued on other streams is not
 billed to the segment.
 
 **Spans.**  With :mod:`repro_torch.spans` recording, ``run_pipelined``
 records, without waiting on the card: ``pipeline.stage`` (an input made
-a tensor and queued H2D; micro-batch, segment index),
-``pipeline.launch`` (a device segment's host path up to its launches'
-return; micro-batch, segment index), ``pipeline.host`` (a host segment;
-the same), ``pipeline.download`` (pinned buffer, D2H and event queued;
-micro-batch) and ``pipeline.d2h_wait`` (the host blocked on that event;
-micro-batch).
+a tensor and queued H2D, or copied into a ring slot; micro-batch,
+segment index), ``pipeline.launch`` (a device segment's host path up to
+its launches' return, or a replay and its event; micro-batch, segment
+index), ``pipeline.host`` (a host segment; the same),
+``pipeline.download`` (pinned buffer, D2H and event queued; from a
+ring slot, the rows copied out once its event is waited on;
+micro-batch) and ``pipeline.d2h_wait`` (the host blocked on a result's
+event; micro-batch).
 """
 
 from __future__ import annotations
@@ -74,6 +108,21 @@ def canonical_mixed_mapping(model: BNNModel) -> tuple:
     )
 
 
+RING_SLOTS = 2            # graphs a (device segment, batch size) cycles
+
+
+@dataclasses.dataclass
+class GraphCounts:
+    """How a pipeline's device segments were served, per (micro-batch,
+    device segment): ``graph_replays`` from a captured graph,
+    ``eager_device_segments`` eagerly; ``graph_captures`` counts the
+    graphs captured."""
+
+    graph_captures: int = 0
+    graph_replays: int = 0
+    eager_device_segments: int = 0
+
+
 @dataclasses.dataclass
 class _Download:
     """A device result on its way to pinned host memory."""
@@ -82,11 +131,40 @@ class _Download:
     done: torch.cuda.Event
 
 
+@dataclasses.dataclass
+class _Slot:
+    """One place in a ring: a captured H2D -> segment -> D2H over its
+    own buffers, and the event recorded behind its last replay."""
+
+    x: np.ndarray             # view of the pinned input
+    host_in: torch.Tensor
+    dev_in: torch.Tensor
+    host_out: torch.Tensor
+    graph: torch.cuda.CUDAGraph
+    done: torch.cuda.Event
+
+
+@dataclasses.dataclass
+class _Ring:
+    """The slots of one (device segment, batch size), taken in turn, and
+    the launches a replay makes, ``[(wrapper, count)]``."""
+
+    slots: list
+    launches: list
+    next: int = 0
+
+    def take(self) -> _Slot:
+        slot = self.slots[self.next]
+        self.next = (self.next + 1) % len(self.slots)
+        return slot
+
+
 class SegmentPipeline:
     """Callables for a ``"segments"``-mode
     :class:`~repro_torch.core.plan.SegmentPlan`, plus serial and
     pipelined drivers over its nodes.  Device nodes run on `device`
-    (``None`` -> ``cuda``), host nodes on CPU tensors."""
+    (``None`` -> ``cuda``), host nodes on CPU tensors; ``counts`` is
+    the :class:`GraphCounts` to add to (a fresh one by default)."""
 
     def __init__(
         self,
@@ -97,6 +175,7 @@ class SegmentPipeline:
         device=None,
         plan: SegmentPlan | None = None,
         registry=None,
+        counts: GraphCounts | None = None,
     ):
         self.device = resolve_device(device)
         self.config = config
@@ -111,10 +190,24 @@ class SegmentPipeline:
         self.segment_fns = build_node_fns(
             model, packed_params, config, plan, registry, device=self.device
         )
+        self._built = tuple(fn for _, fn in self.segment_fns)
+        self.counts = GraphCounts() if counts is None else counts
+        self._rings: dict = {}   # (segment index, batch) -> _Ring
 
     @property
     def segments(self) -> tuple:
         return tuple(seg for seg, _ in self.segment_fns)
+
+    def _graphed(self, s: int) -> bool:
+        """Whether segment `s` is served by captured graphs: one fused
+        launch on a CUDA device, through the callable built here."""
+        node, fn = self.segment_fns[s]
+        return (
+            self.device.type == "cuda"
+            and node.on_device
+            and node.fused_variant is not None
+            and fn is self._built[s]
+        )
 
     def _wait_for_segment(self) -> None:
         """Block until the work queued so far on this pipeline's serving
@@ -139,14 +232,85 @@ class SegmentPipeline:
     @staticmethod
     def _on_host(x, i: int) -> torch.Tensor:
         """The host tensor behind `x` (micro-batch `i`), waiting for its
-        D2H if pending."""
-        if isinstance(x, _Download):
+        D2H if pending; a ring slot's result is copied out of the slot."""
+        if isinstance(x, (_Download, _Slot)):
             sp = spans.open("pipeline.d2h_wait", i) if spans.on else None
             x.done.synchronize()
             if sp is not None:
                 spans.close(sp)
+            if isinstance(x, _Slot):
+                sp = spans.open("pipeline.download", i) if spans.on else None
+                out = torch.from_numpy(x.host_out.numpy().copy())
+                if sp is not None:
+                    spans.close(sp)
+                return out
             return x.host
         return x
+
+    def _capture(self, s: int, x) -> _Ring:
+        """The ring of segment `s` at `x`'s shape: one eager launch of
+        that shape, then RING_SLOTS graphs, each over buffers of its
+        own.  The launch counters are put back after the captures."""
+        from repro_torch.kernels import KERNELS
+
+        fn = self.segment_fns[s][1]
+        x = torch.as_tensor(np.asarray(x))
+        with torch.cuda.device(self.device):
+            out = fn(to_device(x, self.device))
+            torch.cuda.current_stream(self.device).synchronize()
+            before = [k.launches for k in KERNELS]
+            side = torch.cuda.Stream(self.device)
+            slots = []
+            try:
+                for _ in range(RING_SLOTS):
+                    host_in = torch.empty(x.shape, dtype=x.dtype,
+                                          pin_memory=True)
+                    dev_in = torch.empty(x.shape, dtype=x.dtype,
+                                         device=self.device)
+                    host_out = torch.empty(out.shape, dtype=out.dtype,
+                                           pin_memory=True)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, stream=side,
+                                          capture_error_mode="thread_local"):
+                        dev_in.copy_(host_in, non_blocking=True)
+                        host_out.copy_(fn(dev_in), non_blocking=True)
+                    slots.append(_Slot(host_in.numpy(), host_in, dev_in,
+                                       host_out, graph, torch.cuda.Event()))
+                launches = [(k, (k.launches - n) // RING_SLOTS)
+                            for k, n in zip(KERNELS, before) if k.launches > n]
+            finally:
+                for k, n in zip(KERNELS, before):
+                    k.launches = n
+        self.counts.graph_captures += RING_SLOTS
+        ring = self._rings[(s, x.shape[0])] = _Ring(slots, launches)
+        return ring
+
+    def _replay(self, s: int, x, i: int, observer) -> _Slot:
+        """Serve micro-batch `i` of segment `s` from its ring's next
+        slot; the result stays in the slot until read."""
+        ring = self._rings.get((s, x.shape[0])) or self._capture(s, x)
+        slot = ring.take()
+        # returns at once where the schedule read the slot's last result;
+        # after a failed step it keeps this copy off a replay in flight
+        slot.done.synchronize()
+        sp = spans.open("pipeline.stage", i, s) if spans.on else None
+        np.copyto(slot.x, x, casting="no")
+        if sp is not None:
+            spans.close(sp)
+        t0 = time.perf_counter() if observer is not None else 0.0
+        sp = spans.open("pipeline.launch", i, s) if spans.on else None
+        slot.graph.replay()
+        slot.done.record(torch.cuda.current_stream(self.device))
+        for kernel, n in ring.launches:
+            kernel.launches += n
+        self.counts.graph_replays += 1
+        if sp is not None:
+            spans.close(sp)
+        if observer is not None:
+            slot.done.synchronize()
+            observer(s, self.segment_fns[s][0], time.perf_counter() - t0,
+                     x.shape[0])
+        return slot
 
     # -- serial reference: one micro-batch at a time, Python thread
     #    blocks at every segment boundary (no overlap) ---------------
@@ -172,26 +336,39 @@ class SegmentPipeline:
 
         ``on_complete(i, out)`` fires as soon as micro-batch ``i``'s
         output is on the host — the per-micro-batch completion point
-        for latency measurement.  Returns outputs (NumPy) in input
-        order.
+        for latency measurement (for a last segment served by a graph,
+        once the next micro-batch's replay is queued).  Returns outputs
+        (NumPy) in input order, each an array of its own.
         """
         segs = self.segment_fns
         k, n = len(segs), len(inputs)
         if n == 0:
             return []
-        first_on_device = segs[0][0].on_device
+        graphed = [self._graphed(s) for s in range(k)]
+        upload = segs[0][0].on_device and not graphed[0]
         state: list = [None] * n
         staged: list = [None] * n
         outputs: list = [None] * n
+        late: list = []             # results left in ring slots
 
         def stage(i):
             # double-buffered H2D: the upload is queued a wave before
-            # micro-batch i first executes
+            # micro-batch i first executes (a ring slot's copy waits for
+            # its replay: the slot may still hold an unread result)
+            if graphed[0]:
+                staged[i] = inputs[i]
+                return
             sp = spans.open("pipeline.stage", i) if spans.on else None
             x = torch.as_tensor(np.asarray(inputs[i]))
-            staged[i] = to_device(x, self.device) if first_on_device else x
+            staged[i] = to_device(x, self.device) if upload else x
             if sp is not None:
                 spans.close(sp)
+
+        def finish(i):
+            outputs[i] = self._on_host(state[i], i).numpy()
+            state[i] = None
+            if on_complete is not None:
+                on_complete(i, outputs[i])
 
         stage(0)
         for w in range(n + k - 1):
@@ -209,6 +386,10 @@ class SegmentPipeline:
                     continue
                 x = staged[i] if s == 0 else state[i]
                 staged[i] = None        # keep only ~2 live buffers
+                if graphed[s]:
+                    state[i] = self._replay(s, x, i, observer)
+                    continue
+                self.counts.eager_device_segments += 1
                 if x.device != self.device:
                     sp = (spans.open("pipeline.stage", i, s) if spans.on
                           else None)
@@ -227,6 +408,10 @@ class SegmentPipeline:
                 state[i] = self._download(out)
                 if sp is not None:
                     spans.close(sp)
+            # the last wave's replays are queued: read what they follow
+            for i in late:
+                finish(i)
+            late.clear()
             # host advances: reading a device result waits for its D2H
             for i, s in active:
                 seg, fn = segs[s]
@@ -247,8 +432,10 @@ class SegmentPipeline:
             # completions: micro-batch i leaves the pipeline
             for i, s in active:
                 if s == k - 1:
-                    outputs[i] = self._on_host(state[i], i).numpy()
-                    state[i] = None
-                    if on_complete is not None:
-                        on_complete(i, outputs[i])
+                    if graphed[s]:
+                        late.append(i)
+                    else:
+                        finish(i)
+        for i in late:
+            finish(i)
         return outputs

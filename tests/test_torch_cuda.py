@@ -292,6 +292,90 @@ def test_observed_device_segment_waits_for_its_own_stream_only(dev):
     assert device_s[0] < sleep_s / 2, (device_s, sleep_s)
 
 
+def _fused_whole(m, batch_sizes=(1, 4, 16)):
+    """The full net on the card as one ``seg_cuda`` launch (``[D1-19]``
+    for CIFAR-10), priced on a flat table at the largest batch."""
+    n = len(m.specs)
+    row = [{c: 1e-4 for c in CONFIGS} for _ in range(n)]
+    rows = {b: row for b in batch_sizes}
+    table = ProfileTable(
+        m.name, batch_sizes,
+        tuple(f"L{s.idx}:{s.notation}" for s in m.specs), rows,
+        kernel_times=rows, h2d_times={b: [1e-5] * n for b in batch_sizes},
+        d2h_times={b: [1e-5] * n for b in batch_sizes})
+    ec = price_mapping(table, max(batch_sizes), ("XYZ",) * n)
+    return dataclasses.replace(ec, fused_segments=((0, n, "seg_cuda", 1e-9),))
+
+
+@pytest.mark.parametrize("size", [1, 4, 16])
+def test_graph_ring_serves_bit_exact_results_of_their_own(dev, size):
+    """The fused full-width CIFAR-10 mapping served through captured
+    graphs: 8 micro-batches of `size` a step over 3 steps (every slot of
+    the ring reused, the last micro-batch padded where it can be),
+    answers equal to the eager launch and to the plain chain; results
+    kept from the first step unchanged after the last; no two results
+    share memory; one replay and one ``segment_cuda`` launch a
+    micro-batch, after the one eager launch that precedes the capture
+    of the ring's two slots."""
+    from repro_torch.serving import ServingEngine
+
+    m, packed, xs = _full_net("cifar10", dev)
+    ec = _fused_whole(m)
+    engine = ServingEngine(m, packed, ec, max_batch=size, max_wait_s=0.0,
+                           allowed_batch_sizes=(1, 4, 16), device=dev)
+    assert engine.pipeline._graphed(0)
+    images = xs[0].cpu().numpy()
+    want = xs[-1].cpu().numpy()
+    eager = engine.pipeline.run_serial(images)
+    assert np.array_equal(eager, want)
+    counts = engine.graph_counts
+    kept, first = [], None
+    for step in range(3):
+        n = 8 * size - (1 if size > 1 and step == 2 else 0)
+        ids = [(step * 8 * size + j) % len(images) for j in range(n)]
+        before = (segment_cuda.launches, counts.graph_replays)
+        reqs = [engine.submit(images[i]) for i in ids]
+        assert engine.step(force=True) == n
+        got = np.stack([r.wait(timeout=60) for r in reqs])
+        assert np.array_equal(got, want[ids]), f"step {step}"
+        assert np.array_equal(got, eager[ids]), f"step {step}"
+        replays = counts.graph_replays - before[1]
+        assert replays == 8
+        assert segment_cuda.launches - before[0] == replays + (step == 0)
+        kept += [r.result for r in reqs]
+        if first is None:
+            first = [(r.result, r.result.copy()) for r in reqs]
+    for result, copy in first:
+        assert np.array_equal(result, copy)
+    for a in range(len(kept)):
+        for b in range(a + 1, len(kept)):
+            assert not np.shares_memory(kept[a], kept[b])
+    assert counts.graph_replays == engine.microbatches == 24
+    assert counts.eager_device_segments == 0
+    assert counts.graph_captures == 2
+
+
+def test_graph_rings_capture_once_per_pad_size(dev):
+    """Micro-batches padded to 16, 4 and 1 in one engine: two slots
+    captured a pad size, every answer equal to the plain chain."""
+    from repro_torch.serving import ServingEngine
+
+    m, packed, xs = _full_net("cifar10", dev)
+    engine = ServingEngine(m, packed, _fused_whole(m), max_wait_s=0.0,
+                           allowed_batch_sizes=(1, 4, 16), device=dev)
+    images, want = xs[0].cpu().numpy(), xs[-1].cpu().numpy()
+    for n in (16 + 3, 16 + 1, 3, 1, 16):
+        ids = [j % len(images) for j in range(n)]
+        reqs = [engine.submit(images[i]) for i in ids]
+        engine.step(force=True)
+        got = np.stack([r.wait(timeout=60) for r in reqs])
+        assert np.array_equal(got, want[ids]), n
+    counts = engine.graph_counts
+    assert counts.graph_captures == 2 * 3
+    assert counts.graph_replays == engine.microbatches == 7
+    assert counts.eager_device_segments == 0
+
+
 # (b, h, hkv, sq, sk, d, dtype, causal): f32 is held at 1e-4 (only the
 # order of the f32 sums differs), bf16 at 2e-2 (the JAX bf16 test's)
 FLASH_CASES = {
@@ -579,7 +663,10 @@ def test_elastic_engine_level_switch_serves_equal_to_the_plain_path(dev):
         assert torch.equal(got, want), f"level {k}"
     assert engine.level_switches == 2
     assert xnor_gemm_cuda.launches > before[0]
-    assert segment_cuda.launches == before[1] + 1
+    # level 1's one micro-batch: the eager launch before its graphs'
+    # capture, then the replay that serves it
+    assert segment_cuda.launches == before[1] + 2
+    assert engine.graph_counts.graph_replays == 1
 
 
 def _train_setup(dev_or_cpu, seed=0):

@@ -258,3 +258,169 @@ def test_failed_pipeline_fails_every_popped_request():
     for r in reqs:
         with pytest.raises(RuntimeError, match="device lost"):
             r.wait(timeout=1)
+
+
+# -- when the graph path engages: never on a CPU, never for a callable
+#    wrapped after the build or an unfused device segment ----------------
+
+
+class _WrappedEngine(ServingEngine):
+    """Wraps each device segment's callable through the build seam, as
+    a contention-injecting engine does."""
+
+    def _build_pipeline(self, config):
+        pipe = super()._build_pipeline(config)
+
+        def wrap(fn):
+            return lambda x: fn(x)
+
+        pipe.segment_fns = [(seg, wrap(fn) if seg.on_device else fn)
+                            for seg, fn in pipe.segment_fns]
+        return pipe
+
+
+@pytest.mark.parametrize("case", ["cpu", "wrapped", "unfused"])
+def test_device_segments_run_eagerly_where_no_graph_engages(case):
+    """Each case serves eagerly on the CPU and counts every (micro-batch,
+    device segment) as eager; with the pipeline's device relabelled
+    ``cuda`` only the fused node with its built callable would take
+    the graph path."""
+    m, packed, xw, want, table = _setup("cifar10")
+    kind = "device" if case == "unfused" else "fused"
+    cls = _WrappedEngine if case == "wrapped" else ServingEngine
+    engine = cls(m, packed, _config("cifar10", kind),
+                 allowed_batch_sizes=table.batch_sizes, device="cpu")
+    reqs = [engine.submit(xw[i]) for i in range(N_EXAMPLES)]
+    assert engine.step(force=True) == N_EXAMPLES
+    assert np.array_equal(np.stack([r.wait(timeout=60) for r in reqs]), want)
+    pipe = engine.pipeline
+    n_device = sum(seg.on_device for seg in pipe.segments)
+    counts = engine.graph_counts
+    assert (counts.graph_captures, counts.graph_replays) == (0, 0)
+    assert counts.eager_device_segments == engine.microbatches * n_device
+    assert not any(pipe._graphed(s) for s in range(len(pipe.segments)))
+    pipe.device = torch.device("cuda", 0)      # the label only: no launch
+    assert [pipe._graphed(s) for s in range(len(pipe.segments))] == [
+        seg.on_device and case == "cpu" for seg in pipe.segments]
+
+
+def test_graph_counters_are_in_deployment_stats_and_survive_swaps():
+    from repro_torch import api
+
+    m, packed, xw, want, table = _setup("cifar10")
+    dep = api.Deployment.plan((m, packed), batch_sizes=(BATCH,),
+                              time_source="analytic", repeats=1,
+                              device="cpu").serve(max_batch=BATCH)
+    reqs = [dep.submit(xw[i]) for i in range(N_EXAMPLES)]
+    assert dep.drain() == N_EXAMPLES
+    assert np.array_equal(np.stack([r.wait(timeout=60) for r in reqs]), want)
+    engine = dep.engine
+    n_device = sum(seg.on_device for seg in engine.pipeline.segments)
+    s = dep.stats()
+    assert (s["graph_captures"], s["graph_replays"]) == (0, 0)
+    assert s["eager_device_segments"] == s["microbatches"] * n_device
+    # a swap builds a new pipeline that adds to the same counters
+    pipeline = engine.pipeline
+    assert engine.swap_configuration(_config("cifar10", "mixed"))
+    assert engine.pipeline is not pipeline
+    assert engine.pipeline.counts is engine.graph_counts
+    reqs = [dep.submit(xw[i]) for i in range(BATCH)]
+    assert dep.drain() == BATCH
+    n_mixed = sum(seg.on_device for seg in engine.pipeline.segments)
+    assert dep.stats()["eager_device_segments"] == (
+        s["eager_device_segments"] + n_mixed)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "fused"])
+def test_results_of_successive_microbatches_share_no_memory(kind):
+    m, packed, xw, want, table = _setup("cifar10")
+    engine = ServingEngine(m, packed, _config("cifar10", kind),
+                           allowed_batch_sizes=table.batch_sizes,
+                           device="cpu")
+    kept = []
+    for _ in range(3):
+        reqs = [engine.submit(xw[i]) for i in range(N_EXAMPLES)]
+        engine.step(force=True)
+        kept += [r.wait(timeout=60) for r in reqs]
+    assert np.array_equal(np.stack(kept[:N_EXAMPLES]), want)
+    for a in range(len(kept)):
+        for b in range(a + 1, len(kept)):
+            assert not np.shares_memory(kept[a], kept[b])
+
+
+class _FakeEvent:
+    def __init__(self):
+        self.waited = True
+
+    def record(self, stream=None):
+        self.waited = False
+
+    def synchronize(self):
+        self.waited = True
+
+
+class _RingOnCPU(SegmentPipeline):
+    """The graph path's schedule on CPU tensors: a fused device segment
+    "replays" by running its callable into the next of two slots, and
+    refuses to overwrite a slot whose result was never waited on."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.log = []
+
+    def _graphed(self, s):
+        node, _ = self.segment_fns[s]
+        return node.on_device and node.fused_variant is not None
+
+    def _replay(self, s, x, i, observer):
+        from repro_torch.serving import pipeline as P
+
+        ring = self._rings.setdefault(s, P._Ring(
+            [P._Slot(None, None, None, None, None, _FakeEvent())
+             for _ in range(P.RING_SLOTS)], []))
+        slot = ring.take()
+        assert slot.done.waited, f"micro-batch {i} overwrites an unread slot"
+        out = self.segment_fns[s][1](torch.as_tensor(np.asarray(x)))
+        if slot.host_out is None or slot.host_out.shape != out.shape:
+            slot.host_out = torch.empty_like(out)
+        slot.host_out.copy_(out)
+        slot.done.record()
+        self.counts.graph_replays += 1
+        self.log.append(("replay", i))
+        return slot
+
+
+@pytest.mark.parametrize("kind", ["fused", "mixed_fused"])
+def test_ring_schedule_reads_each_slot_after_the_next_replay(kind):
+    """Results left in ring slots are read, and copied out, only after
+    the next micro-batch's replay is queued, never after their slot is
+    reused; answers equal the serial driver's, in order."""
+    m, packed, xw, want, table = _setup("cifar10")
+    n = len(m.specs)
+    ec = _config("cifar10", "fused")            # host -> fused device
+    if kind == "mixed_fused":                   # ... -> host
+        ec = dataclasses.replace(
+            price_mapping(table, BATCH, ("CPU",) + ("XYZ",) * (n - 2)
+                          + ("CPU",)),
+            fused_segments=((1, n - 1, "seg_cuda", 1e-9),))
+    pipe = _RingOnCPU(m, packed, ec, device="cpu")
+    assert [pipe._graphed(s) for s in range(len(pipe.segments))] == (
+        [False, True] if kind == "fused" else [False, True, False])
+    batches = [xw[j % N_EXAMPLES:j % N_EXAMPLES + 1] for j in range(6)]
+    outs = pipe.run_pipelined(
+        batches, on_complete=lambda i, out: pipe.log.append(("done", i)))
+    for o, b in zip(outs, batches):
+        assert np.array_equal(o, pipe.run_serial(b))
+    done = [i for what, i in pipe.log if what == "done"]
+    assert done == list(range(6))
+    last = len(pipe.segments) - 1
+    for i in range(5):
+        if pipe._graphed(last):
+            assert pipe.log.index(("done", i)) > pipe.log.index(
+                ("replay", i + 1))
+    assert pipe.counts.graph_replays == 6
+    assert pipe.counts.eager_device_segments == 0
+    slots = [sl for ring in pipe._rings.values() for sl in ring.slots]
+    for o in outs:
+        assert not any(np.shares_memory(o, sl.host_out.numpy())
+                       for sl in slots)
