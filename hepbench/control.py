@@ -4,12 +4,13 @@
         --seconds 3 --seeds 11 12 13
 
 Runs the cell once per seed in one process, as the benchmark runs it,
-and prints one JSON line per seed: the program's compared numbers
-(``wrong_answers``, ``missing_answers``) and the control's: the plain
-reference with every batch norm evaluated in bfloat16 instead of against
-its exact threshold, put in the program's place and held to the same
-exact comparison over the same answered requests.  The benchmark's own
-runs never compute the control.
+and prints one JSON line per seed: the program's compared numbers (the
+family's checks and ``missing_answers``) and the control's: the family's
+reference in the precision below the configuration's (``hepbnn``: every
+batch norm evaluated in bfloat16 instead of against its exact
+threshold), put in the program's place and held by the family's
+agreement rule to the same answered requests.  The benchmark's own runs
+never compute the control.
 """
 
 from __future__ import annotations

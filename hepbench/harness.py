@@ -6,9 +6,11 @@ The program under test is ``repro_torch`` behind its public facade:
 in a fixed directory of the checkout), ``serve``, then ``submit`` from
 one client thread and ``step`` from one dispatch thread, the main one.
 The window drives batcher -> engine -> segment pipeline -> the mapped
-layers (``xnor_gemm_cuda``, ``segment_cuda``, the host's packed layers)
--> answers on the host.  Every answer due in the window is compared,
-exactly, with the reference's class scores of its image.
+layers -> answers on the host.  What belongs to one network family (its
+inputs, set-up, reference, agreement rule and kernel names) comes from
+the configuration's family file (``spec.Bench.family``); every answer
+due in the window is held to the family's reference answer of its
+request by the family's rule.
 """
 
 from __future__ import annotations
@@ -24,8 +26,7 @@ import traceback
 import numpy as np
 import torch
 
-from hepbench import inputs, traffic
-from hepbench.reference import bnn as ref
+from hepbench import traffic
 from hepbench.trace import MARK_AFTER_S, Tracer
 
 POOL = 4096              # images a run draws its requests from
@@ -34,14 +35,13 @@ DRAIN_S = 60.0           # how long answers due in the window are awaited
 WARM_S = 2.0             # the cell's own traffic before the window
 SLICE_S = 0.5            # one traced slice of a --trace 1 window
 SLICE_AT = (0.55, 0.7, 0.85)  # where in the window a slice may start
-PACK_ROWS = 512
 
 
 @dataclasses.dataclass
 class Program:
     deployment: object
     served: object           # the served EfficientConfiguration
-    words: np.ndarray        # packed pool images, as the client submits
+    payloads: np.ndarray     # one request per pool image, as submitted
     allowed: tuple           # profiled batch sizes (the batcher's pads)
 
 
@@ -56,14 +56,14 @@ class Run:
     t0: float
     t_end: float
     setup_s: float
-    layers: list             # the reference's layers
+    layers: object           # the family's net (hepbnn: reference layers)
     served: object           # the served EfficientConfiguration
     allowed: tuple
     due: np.ndarray          # host clock (time.monotonic), every request
     submit: np.ndarray
     done: np.ndarray         # nan where no answer came
     image: np.ndarray
-    ok: np.ndarray           # answered and equal to the reference
+    ok: np.ndarray           # answered and agreeing with the reference
     steps: np.ndarray        # (start, end, answers) of non-empty steps
     slices: list             # trace.Slice, --trace 1 only
 
@@ -93,56 +93,16 @@ def log(*args) -> None:
     print(*args, file=sys.stderr, flush=True)
 
 
-def make_inputs(config: dict, seed_weights: int, seed_images: int, device,
-                pool: int = POOL) -> tuple:
-    """(the reference's layers, fp weights, `pool` images) of a
-    configuration, made on `device` from the seeds."""
-    layers = ref.parse(config["notation"], config["input_hw"],
-                       config["in_channels"], config["n_classes"])
-    fp = inputs.fp_weights(layers, seed_weights, device)
-    shape = tuple(config["input_hw"]) + (config["in_channels"],)
-    return layers, fp, inputs.images(shape, pool, seed_images, device)
+def seeds(seed: int, n: int) -> list:
+    """`n` independent 63-bit seeds derived from the run's `seed`."""
+    state = np.random.SeedSequence(int(seed)).generate_state(n, np.uint64)
+    return [int(x) >> 1 for x in state]
 
 
 def store_uri(root, config_name: str) -> str:
     """The profile store of a configuration: a fixed directory of the
     checkout, so that only a checkout's first run plans cold."""
     return f"dir://{root / 'build' / 'hepbench_store' / config_name}"
-
-
-def build_program(config: dict, fp_params: list, x01, device,
-                  store: str) -> Program:
-    """The port's set-up: pack, plan through the facade, serve."""
-    from repro_torch import api
-    from repro_torch.bnn.layers import parse_notation
-    from repro_torch.bnn.models import (
-        BNNModel, pack_params, prepare_input_packed,
-    )
-
-    hw, cin, ncls = (tuple(config["input_hw"]), config["in_channels"],
-                     config["n_classes"])
-    specs = tuple(parse_notation(config["notation"], hw, cin, ncls))
-    model = BNNModel(config["model"], specs, hw, cin, ncls)
-    t = [time.monotonic()]
-    packed = pack_params(specs, fp_params, device=device)
-    words = np.concatenate([
-        prepare_input_packed(x01[i:i + PACK_ROWS]).cpu().numpy()
-        for i in range(0, x01.shape[0], PACK_ROWS)])
-    t.append(time.monotonic())
-    configs = config.get("configs")     # the mapper's candidates
-    dep = api.Deployment.plan(
-        (model, packed), batch_sizes=tuple(config["batch_sizes"]),
-        policy=config["policy"], fuse=config["fuse"], store=store,
-        configs=None if configs is None else tuple(configs), device=device,
-    )
-    t.append(time.monotonic())
-    dep.serve(max_wait_s=config["max_wait_s"])
-    t.append(time.monotonic())
-    log("program set-up: " + ", ".join(
-        f"{name} {b - a:.3f} s" for name, a, b in
-        zip(("pack", "plan", "serve"), t, t[1:])))
-    served = dep.configuration()
-    return Program(dep, served, words, tuple(sorted(config["batch_sizes"])))
 
 
 def served_segments(served) -> str:
@@ -179,8 +139,8 @@ class _Record:
         self.due, self.image, self.submit, self.done = [], [], [], []
         self.scores = []
 
-    def send(self, dep, words, due: float, image: int):
-        r = dep.submit(words[image])
+    def send(self, dep, payloads, due: float, image: int):
+        r = dep.submit(payloads[image])
         self.pending.append((r, due, image))
         self.sent += 1
         return r
@@ -219,10 +179,10 @@ class _Record:
                 "scores": np.asarray(self.scores).reshape(-1, ncls)}
 
 
-def _closed_client(dep, sched, words, t0, t_end, rec, halt):
+def _closed_client(dep, sched, payloads, t0, t_end, rec, halt):
     time.sleep(max(0.0, t0 - time.monotonic()))
     for i in range(sched.outstanding):
-        rec.send(dep, words, t0, sched.image(i))
+        rec.send(dep, payloads, t0, sched.image(i))
     i = sched.outstanding
     while rec.pending and not halt.is_set():
         try:
@@ -234,11 +194,11 @@ def _closed_client(dep, sched, words, t0, t_end, rec, halt):
             pass
         for done in rec.reap():
             if done < t_end:
-                rec.send(dep, words, done, sched.image(i))
+                rec.send(dep, payloads, done, sched.image(i))
                 i += 1
 
 
-def _open_client(dep, sched, words, t0, t_end, rec, halt):
+def _open_client(dep, sched, payloads, t0, t_end, rec, halt):
     for i, rel in enumerate(sched.due_s):
         if halt.is_set():
             return
@@ -247,7 +207,7 @@ def _open_client(dep, sched, words, t0, t_end, rec, halt):
         wait = due - time.monotonic()
         if wait > 0:
             time.sleep(wait)
-        rec.send(dep, words, due, sched.image(i))
+        rec.send(dep, payloads, due, sched.image(i))
 
 
 CLIENTS = {"closed": _closed_client, "poisson": _open_client}
@@ -256,13 +216,13 @@ CLIENTS = {"closed": _closed_client, "poisson": _open_client}
 def drive(program: Program, sched, seconds: float, tracer=None):
     """Run `sched` for `seconds` and wait for the answers; returns
     (t0, t_end, the requests' arrays, steps, step errors)."""
-    dep, words = program.deployment, program.words
+    dep, payloads = program.deployment, program.payloads
     rec, halt, steps, errors = _Record(), threading.Event(), [], []
     t0 = time.monotonic() + 0.01
     t_end = t0 + seconds
     client = threading.Thread(
         target=CLIENTS[sched.kind],
-        args=(dep, sched, words, t0, t_end, rec, halt), daemon=True)
+        args=(dep, sched, payloads, t0, t_end, rec, halt), daemon=True)
     slice_starts = [t0 + f * seconds for f in SLICE_AT] if tracer else []
     slice_end = mark_at = None
     answered, batch = 0, program.served.proper_batch_size
@@ -321,16 +281,16 @@ def drive(program: Program, sched, seconds: float, tracer=None):
 
 def warm(program: Program, mix: dict, seed: int) -> None:
     """Every pad size once, then the cell's own traffic for WARM_S."""
-    dep, words = program.deployment, program.words
+    dep, payloads = program.deployment, program.payloads
     for size in program.allowed:
-        reqs = [dep.submit(words[i]) for i in range(size)]
+        reqs = [dep.submit(payloads[i]) for i in range(size)]
         dep.step(force=True)
         for r in reqs:
             try:
                 r.wait(timeout=DRAIN_S)
             except Exception:       # the window's answers are what is judged
                 pass
-    drive(program, traffic.schedule(mix, seed, WARM_S, len(words)), WARM_S)
+    drive(program, traffic.schedule(mix, seed, WARM_S, len(payloads)), WARM_S)
 
 
 def run_cell(bench, workload: str, seed: int, seconds: float, trace: bool,
@@ -338,8 +298,9 @@ def run_cell(bench, workload: str, seed: int, seconds: float, trace: bool,
              control: bool = False) -> dict:
     """One run; returns the result line's fields and the compared
     numbers (``checks``).  ``control=True`` also reads the control: the
-    reference with its batch norms in bfloat16, in the program's place
-    (the benchmark's own runs never do)."""
+    family's reference in its lower precision (hepbnn: batch norms in
+    bfloat16), in the program's place (the benchmark's own runs never
+    do)."""
     t_start = time.monotonic() if t_start is None else t_start
     stamps = [("start", t_start)]
 
@@ -349,17 +310,19 @@ def run_cell(bench, workload: str, seed: int, seconds: float, trace: bool,
     cell = bench.cell(workload)
     config = bench.config(cell["config"])
     mix = bench.traffic(cell["traffic"])
+    family = bench.family(config)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
-    s_weights, s_images, s_traffic, s_warm = inputs.seeds(seed, 4)
+    s_weights, s_images, s_traffic, s_warm = seeds(seed, 4)
     stamp("imports")
-    layers, fp, x01 = make_inputs(config, s_weights, s_images, dev)
+    net, weights, images = family.inputs(config, s_weights, s_images, dev,
+                                         POOL)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     stamp("inputs")
-    program = build_program(config, fp, x01, dev,
-                            store_uri(bench.root, cell["config"]))
+    program = family.build_program(config, weights, images, dev,
+                                   store_uri(bench.root, cell["config"]))
     stamp("plan")
     log(mapping_line(program.served))
     warm(program, mix, s_warm)
@@ -372,7 +335,8 @@ def run_cell(bench, workload: str, seed: int, seconds: float, trace: bool,
 
     from repro_torch.kernels import launch_counts
 
-    tracer = Tracer(launch_counts) if trace and dev.type == "cuda" else None
+    tracer = (Tracer(launch_counts, family.KERNELS)
+              if trace and dev.type == "cuda" else None)
     if tracer is not None:
         tracer.warm()
     sched = traffic.schedule(mix, s_traffic, seconds, POOL)
@@ -399,24 +363,20 @@ def run_cell(bench, workload: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    scores = ref.forward(layers, fp, x01, eps=config["bn_eps"]).cpu().numpy()
+    want = family.expected(config, net, weights, images)
     image = results["image"]
     answered = ~np.isnan(results["done"])
+    seen = image[answered]
     ok = answered.copy()
-    ok[answered] = np.all(results["scores"] == scores[image[answered]],
-                          axis=1)
-    checks = {
-        "wrong_answers": (int(np.sum(answered & ~ok)), 0),
-        "missing_answers": (int(np.sum(~answered)), 0),
-    }
+    ok[answered], checks = family.agree(config, results["scores"],
+                                        want[seen])
+    checks["missing_answers"] = (int(np.sum(~answered)), 0)
     out = {"checks": checks}
     if control:
-        low = ref.forward(layers, fp, x01, eps=config["bn_eps"],
-                          control=True).cpu().numpy()
-        seen = image[answered]
-        out["control_wrong_answers"] = int(np.sum(
-            np.any(low[seen] != scores[seen], axis=1)))
-    run = Run(cell, config, mix, seconds, t0, t_end, setup_s, layers, served,
+        low = family.expected(config, net, weights, images, control=True)
+        agreed, _ = family.agree(config, low[seen], want[seen])
+        out["control_wrong_answers"] = int(np.sum(~agreed))
+    run = Run(cell, config, mix, seconds, t0, t_end, setup_s, net, served,
               allowed, results["due"], results["submit"], results["done"],
               image, ok, steps, slices)
     out.update(run=run, memory_peak_bytes=int(memory_peak),

@@ -30,18 +30,21 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
-    from hepbench import harness, inputs
+    from hepbench import harness
     from hepbench.spec import Bench
 
-    config = Bench(ROOT).config(args.config)
+    bench = Bench(ROOT)
+    config = bench.config(args.config)
+    family = bench.family(config)
     dev = torch.device("cuda", 0)
-    s_w, s_x, *_ = inputs.seeds(args.seed, 4)
-    _, fp, x01 = harness.make_inputs(config, s_w, s_x, dev, pool=64)
+    s_w, s_x, *_ = harness.seeds(args.seed, 4)
+    _, weights, images = family.inputs(config, s_w, s_x, dev, 64)
     for k in range(TIMES):
         store = ROOT / "build" / "hepbench_plans" / f"{args.config}-{k}"
         shutil.rmtree(store, ignore_errors=True)
         t = time.monotonic()
-        program = harness.build_program(config, fp, x01, dev, f"dir://{store}")
+        program = family.build_program(config, weights, images, dev,
+                                       f"dir://{store}")
         served = program.served
         print(json.dumps({
             "config": args.config, "plan": k, "plan_s": time.monotonic() - t,

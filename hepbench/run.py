@@ -4,17 +4,21 @@
         --seconds 10 --trace 0
 
 Loads the cell, its configuration and its traffic mix by name from
-``BENCHMARK.json``, makes weights and images from ``--seed`` on the card,
-sets the port up through ``repro_torch.api.Deployment`` (a profile
-store and the kernel builds live under ``build/`` of this checkout),
-warms up with the cell's own traffic, measures for ``--seconds``, checks
-every answer against the plain reference, and prints one JSON line last
-on standard output: the cell's end-to-end metrics (``--trace 0``) or its
-per-layer metrics and a device trace (``--trace 1``).  The numbers
-compared, each beside its limit, are the last lines on standard error
-and the line's last key.  Exits non-zero, printing no result, without a
-CUDA card, or when JAX or the JAX package is loaded once the window has
-closed.
+``BENCHMARK.json``, and the configuration's family file
+(``hepbench/families/<family>.py``, ``hepbnn`` where the configuration
+names none; ``spec.py`` says what a family file holds).  Through the
+family it makes the net, weights and images from ``--seed`` on the card
+and sets the port up through ``repro_torch.api.Deployment`` (a profile
+store and the kernel builds live under ``build/`` of this checkout);
+then it warms up with the cell's own traffic, measures for
+``--seconds``, holds every answer to the family's plain reference by the
+family's agreement rule, and prints one JSON line last on standard
+output: the cell's end-to-end metrics (``--trace 0``) or its per-layer
+metrics and a device trace of the family's kernels (``--trace 1``).  The
+numbers compared, each beside its limit, are the last lines on standard
+error and the line's last key.  Exits non-zero, printing no result,
+without a CUDA card, or when JAX or the JAX package is loaded once the
+window has closed.
 """
 
 from __future__ import annotations

@@ -62,16 +62,17 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
-    from hepbench import harness, inputs, traffic
+    from hepbench import harness, traffic
     from hepbench.spec import Bench
 
     bench = Bench(ROOT)
     config = bench.config(args.config)
+    family = bench.family(config)
     dev = torch.device("cuda", 0)
-    s_w, s_x, s_t, s_warm = inputs.seeds(args.seed, 4)
-    _, fp, x01 = harness.make_inputs(config, s_w, s_x, dev)
-    program = harness.build_program(config, fp, x01, dev,
-                                    harness.store_uri(ROOT, args.config))
+    s_w, s_x, s_t, s_warm = harness.seeds(args.seed, 4)
+    _, weights, images = family.inputs(config, s_w, s_x, dev, harness.POOL)
+    program = family.build_program(config, weights, images, dev,
+                                   harness.store_uri(ROOT, args.config))
     harness.log(harness.mapping_line(program.served))
     flood = {"kind": "closed", "outstanding": 128}
     harness.warm(program, flood, s_warm)

@@ -1,20 +1,23 @@
 """Whole runs of the harness on the CPU at a tiny size: a configuration, a
-traffic mix, a cell and a metric that exist only as files in a temporary
-benchmark folder are found by name, and a timed path broken underneath
-makes ``correct`` come out false."""
+network family, a traffic mix, a cell and a metric that exist only as
+files in a temporary benchmark folder are found by name, and a timed path
+broken underneath makes ``correct`` come out false."""
 
+import hashlib
 import itertools
 import json
 import shutil
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
-from hepbench import harness
+from hepbench import harness, roofline
 from hepbench import run as bench_run
+from hepbench.spec import Bench
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -33,6 +36,33 @@ import numpy as np
 def read(run):
     return float(np.sum(~np.isnan(run.done)))
 '''
+TOLERANT = '''"""A family only this test's folder has: the paper's networks,
+their answers held to the reference moved by the configuration's
+``offset``, within its ``tolerance``."""
+
+import numpy as np
+
+from hepbench.families import hepbnn
+
+KERNELS = hepbnn.KERNELS
+inputs = hepbnn.inputs
+build_program = hepbnn.build_program
+
+
+def expected(config, net, weights, images, *, control=False):
+    return config["offset"] + hepbnn.expected(config, net, weights, images,
+                                              control=control)
+
+
+def agree(config, answers, want):
+    gap = np.max(np.abs(answers - want), axis=1)
+    ok = gap <= config["tolerance"]
+    return ok, {"wrong_answers": (int(np.sum(~ok)), 0),
+                "widest_gap": (float(gap.max()), config["tolerance"])}
+'''
+# a tolerant configuration: its answers are off by `offset` from its
+# expected ones; an exact comparison would fail both
+OFFSETS = {"tolerant-near": 0.25, "tolerant-off": 1.0}
 
 
 @pytest.fixture(autouse=True)
@@ -53,10 +83,17 @@ def root(tmp_path_factory):
     folder = root / "hepbench"
     shutil.copytree(REPO / "hepbench" / "metrics", folder / "metrics")
     shutil.copytree(REPO / "hepbench" / "traffic", folder / "traffic")
+    shutil.copytree(REPO / "hepbench" / "families", folder / "families",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (folder / "families" / "tolerant.py").write_text(TOLERANT)
     (folder / "configs").mkdir()
     (folder / "configs" / "tiny.json").write_text(json.dumps(TINY))
     (folder / "configs" / "tiny-host.json").write_text(
         json.dumps({**TINY, "name": "tiny-host", "configs": ["CPU"]}))
+    for name, offset in OFFSETS.items():
+        (folder / "configs" / f"{name}.json").write_text(json.dumps(
+            {**TINY, "name": name, "family": "tolerant", "offset": offset,
+             "tolerance": 0.5}))
     (folder / "traffic" / "trickle.json").write_text(
         json.dumps({"kind": "poisson", "rate_per_s": 300}))
     (folder / "metrics" / "answered.test.py").write_text(NEW_METRIC)
@@ -69,14 +106,19 @@ def root(tmp_path_factory):
                      "why": "test"},
                     {"name": "tiny-host", "source": "test",
                      "file": "hepbench/configs/tiny-host.json",
-                     "reduced": [], "why": "test"}],
+                     "reduced": [], "why": "test"}] + [
+                    {"name": name, "source": "test",
+                     "file": f"hepbench/configs/{name}.json",
+                     "reduced": [], "why": "test"} for name in OFFSETS],
         "workloads": [
             {"name": "tiny.flood", "config": "tiny", "traffic": "flood",
              "chips": 1, "why": "test"},
             {"name": "tiny.trickle", "config": "tiny", "traffic": "trickle",
              "chips": 1, "why": "test"},
             {"name": "tiny-host.flood", "config": "tiny-host",
-             "traffic": "flood", "chips": 1, "why": "test"}],
+             "traffic": "flood", "chips": 1, "why": "test"}] + [
+            {"name": f"{name}.flood", "config": name, "traffic": "flood",
+             "chips": 1, "why": "test"} for name in OFFSETS],
         "end_to_end": [
             {"name": "served_img_s", "unit": "img/s", "better": "higher",
              "bound": 0.05, "source": "host_clock",
@@ -223,18 +265,24 @@ def test_control_in_the_programs_place_is_not_correct(root, monkeypatch,
     from hepbench.reference import bnn as ref
     from repro_torch.serving.pipeline import SegmentPipeline
 
-    control_of = {}                  # packed image words -> control scores
-    build, original = harness.build_program, SegmentPipeline.run_pipelined
+    control_of = {}                  # request payload -> control scores
+    family_of, original = Bench.family, SegmentPipeline.run_pipelined
 
-    def recording(config, fp, x01, device, store):
-        program = build(config, fp, x01, device, store)
-        layers = ref.parse(config["notation"], config["input_hw"],
-                           config["in_channels"], config["n_classes"])
-        low = ref.forward(layers, fp, x01, eps=config["bn_eps"],
-                          control=True).numpy()
-        control_of.update(
-            (w.tobytes(), s) for w, s in zip(program.words, low))
-        return program
+    def family(self, config):
+        fam = family_of(self, config)
+
+        def recording(config, weights, images, device, store):
+            program = fam.build_program(config, weights, images, device,
+                                        store)
+            layers = ref.parse(config["notation"], config["input_hw"],
+                               config["in_channels"], config["n_classes"])
+            low = ref.forward(layers, weights, images, eps=config["bn_eps"],
+                              control=True).numpy()
+            control_of.update(
+                (w.tobytes(), s) for w, s in zip(program.payloads, low))
+            return program
+
+        return SimpleNamespace(**{**vars(fam), "build_program": recording})
 
     def control(self, inputs, *, on_complete=None, observer=None):
         def complete(i, out):
@@ -246,12 +294,87 @@ def test_control_in_the_programs_place_is_not_correct(root, monkeypatch,
         return original(self, inputs, on_complete=complete,
                         observer=observer)
 
-    monkeypatch.setattr(harness, "build_program", recording)
+    monkeypatch.setattr(Bench, "family", family)
     monkeypatch.setattr(SegmentPipeline, "run_pipelined", control)
     line = _run(root, "tiny.flood", monkeypatch, capsys)
     assert control_of and line["correct"] is False
     assert line["checks"]["wrong_answers"]["value"] > 0
     assert line["checks"]["missing_answers"]["value"] == 0
+
+
+@pytest.mark.parametrize("config", sorted(OFFSETS))
+def test_a_family_that_exists_only_as_files(config, root, monkeypatch,
+                                            capsys):
+    """A family file of the temporary folder alone is found by its
+    configuration's ``"family"`` key, and its own agreement rule decides
+    ``correct``: answers off by 0.25 pass its tolerance of 0.5 (an exact
+    comparison would fail them), answers off by 1 fail it, every one."""
+    bench = Bench(root)
+    family = bench.family(bench.config(config))
+    assert Path(family.__file__) == root / "hepbench/families/tolerant.py"
+    line = _run(root, f"{config}.flood", monkeypatch, capsys)
+    near = OFFSETS[config] < 0.5
+    assert line["correct"] is near
+    assert line["failed"] == 0 and line["attempted"] > 0
+    assert line["checks"] == {
+        "wrong_answers": {"value": 0 if near else line["attempted"],
+                          "limit": 0},
+        "widest_gap": {"value": OFFSETS[config], "limit": 0.5},
+        "missing_answers": {"value": 0, "limit": 0}}
+
+
+# computed at commit cc484db (the harness before family files) by the
+# same steps, from the seeds 2**31 + 3 derives for weights and images
+PARENT_SEEDS = [8089701765405402584, 5622961840797110046,
+                1625475212250188974, 8755683368951546384]
+PARENT_DIGESTS = {"weights": "fb33705c18844430", "images": "2becbc5d19d9b9cd",
+                  "payloads": "6942b017e09c8eb3", "scores": "d2d0186890a21d7c",
+                  "control": "58abe6e4630ecdb7"}
+PARENT_CIFAR_OPERATIONS = 926306304
+PARENT_CIFAR_BOUNDS = {(0, 19, 16): 1.7305555555555556e-06,
+                       (0, 17, 16): 1.7305172941536578e-06,
+                       (18, 19, 16): 1.1844776119402985e-09,
+                       (0, 19, 1): 4.802602985074627e-07,
+                       (4, 5, 4): 8.079283582089552e-08}
+
+
+def _digest(*arrays) -> str:
+    d = hashlib.sha256()
+    for a in arrays:
+        d.update(np.ascontiguousarray(a).tobytes())
+    return d.hexdigest()[:16]
+
+
+def test_hepbnn_family_reads_what_the_harness_read_before():
+    """The ``hepbnn`` family gives, seed for seed, the weights, images,
+    packed payloads, reference scores and control scores that the harness
+    made itself before family files, and the roofline counts the same
+    operations and launch bounds of ``cifar10-fused``'s layers."""
+    from hepbench import inputs
+
+    seeds = harness.seeds(2**31 + 3, 4)
+    assert seeds == PARENT_SEEDS == inputs.seeds(2**31 + 3, 4)
+    bench = Bench(REPO)
+    family = bench.family(TINY)
+    assert family is bench.family({**TINY, "family": "hepbnn"})
+    net, weights, images = family.inputs(TINY, seeds[0], seeds[1], "cpu",
+                                         256)
+    got = {
+        "weights": _digest(*[p[k].numpy() for p in weights
+                             for k in sorted(p)]),
+        "images": _digest(images.numpy()),
+        "payloads": _digest(family.payloads(images)),
+        "scores": _digest(family.expected(TINY, net, weights, images)),
+        "control": _digest(family.expected(TINY, net, weights, images,
+                                           control=True)),
+    }
+    assert got == PARENT_DIGESTS
+    cifar = bench.config("cifar10-fused")
+    layers = bench.family(cifar).inputs(cifar, seeds[0], seeds[1], "cpu",
+                                        1)[0]
+    assert roofline.operations(layers) == PARENT_CIFAR_OPERATIONS
+    assert {k: roofline.launch_bound_s(layers, *k)
+            for k in PARENT_CIFAR_BOUNDS} == PARENT_CIFAR_BOUNDS
 
 
 def test_no_card_no_result(monkeypatch, capsys):

@@ -9,6 +9,7 @@ import pytest
 from torch.autograd import DeviceType
 
 from hepbench import trace
+from hepbench.families.hepbnn import KERNELS
 
 
 def _ev(name, start_us, end_us, device=DeviceType.CUDA):
@@ -37,7 +38,7 @@ def _slice(launched):
     ]
     steps = [(10.00015, 10.00035, 16), (10.0004, 10.00065, 16)]
     return trace.read_slice(_Prof(events), 9.9, 10.0, 10.0001, 10.0008,
-                            launched, steps, 20.0)
+                            launched, steps, 20.0, KERNELS)
 
 
 def test_slice_keeps_the_work_after_its_mark():

@@ -34,10 +34,6 @@ SETTLE_S = 0.02
 MARK_AFTER_S = 0.3
 PRIMERS = 8
 PRIMER = "spin_kernel"
-# each counting wrapper of the port, and its CUDA kernel as the
-# profiler names it
-KERNEL_OF = {"xnor_gemm_cuda": "xnor_gemm_kernel",
-             "segment_cuda": "segment_kernel"}
 
 
 @dataclasses.dataclass
@@ -63,10 +59,13 @@ class Slice:
 
 
 class Tracer:
-    """Takes profiled slices; `counts()` -> {wrapper: launches so far}."""
+    """Takes profiled slices; `counts()` -> {wrapper: launches so far};
+    `kernels`: wrapper -> its CUDA kernel as the profiler names it (the
+    family's ``KERNELS``)."""
 
-    def __init__(self, counts):
+    def __init__(self, counts, kernels: dict):
         self._counts = counts
+        self._kernels = kernels
         self._prof = None
         self._t0 = None
         self._pending: list = []
@@ -128,7 +127,8 @@ class Tracer:
     def finish(self, steps, t_end: float) -> list:
         """Every slice, read once the window has closed; `steps` are the
         loop's non-empty steps (host start, end, answers)."""
-        return [read_slice(*p, steps, t_end) for p in self._pending]
+        return [read_slice(*p, steps, t_end, self._kernels)
+                for p in self._pending]
 
 
 def _short(name: str) -> str:
@@ -137,7 +137,7 @@ def _short(name: str) -> str:
 
 
 def read_slice(prof, begin: float, align: float, t0: float, t1: float,
-               launched: dict, steps, t_end: float) -> Slice:
+               launched: dict, steps, t_end: float, kernels: dict) -> Slice:
     from torch.autograd import DeviceType
 
     events, primer_end = [], None
@@ -159,7 +159,7 @@ def read_slice(prof, begin: float, align: float, t0: float, t1: float,
     traced, kernel_s, by_name = {}, {}, {}
     for s, e, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
-        for wrapper, kernel in KERNEL_OF.items():
+        for wrapper, kernel in kernels.items():
             if kernel in name:
                 traced[wrapper] = traced.get(wrapper, 0) + 1
                 kernel_s[wrapper] = kernel_s.get(wrapper, 0.0) + (e - s)
