@@ -47,6 +47,7 @@ from repro_torch.core.mapper import (
     price_mapping,
 )
 from repro_torch.core.parallel_config import is_host_config
+from repro_torch.core.plan import require_binary_labels
 from repro_torch.core.profiler import ProfileTable
 from repro_torch.adapt.drift import DriftDetector
 
@@ -162,6 +163,7 @@ class RemapController:
         defaults to the telemetry's own tenant id, so naming the
         telemetry once (``SegmentTelemetry(tenant=...)``) names the
         whole loop."""
+        require_binary_labels(table.layer_labels, "adapt's remap")
         telemetry = telemetry if telemetry is not None else engine.telemetry
         if telemetry is None:
             raise ValueError(

@@ -63,14 +63,6 @@ def train_state_from_numpy(state_np, device=None) -> TrainState:
     )
 
 
-def _fp32_convs():
-    """cuDNN with TF32 off for the block, every other cuDNN setting as
-    the caller left it (``cudnn.flags`` sets each one it is given)."""
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
-
-
 def train_step(model: BNNModel, opt, state: TrainState, x01, labels):
     """One STE step on the state's device.  Returns (new_state,
     metrics); the metrics are 0-d tensors (``loss``, ``acc``,
@@ -87,7 +79,7 @@ def train_step(model: BNNModel, opt, state: TrainState, x01, labels):
     # mantissa on grad_out); keep every conv in float32 so a step on the
     # card matches the same step on CPU tensors.  The fc matmuls follow
     # torch.backends.cuda.matmul.allow_tf32, False by default.
-    with _fp32_convs():
+    with L.fp32_convs():
         logits, new_params = model.apply_fp(params, x01, train=True)
         loss = cross_entropy(logits.float(), labels)
         grads = torch.autograd.grad(loss, live)

@@ -8,6 +8,9 @@ Two halves:
   ``gemm_hbm_traffic``), per-segment times from a kernel/boundary split,
   per-node times of a plan, the two-stage pipeline makespan, and the
   contention pricing (``contention_inflation``, ``inflate_profile``).
+  A real-valued layer (Bi-Real Net) is priced by
+  ``real_layer_kernel_time_h100``: its float32 work and bytes, and a
+  unit's binary conv as kernel 1's GEMM.
   These give the JAX package's results from equal inputs, except that
   ``variant_analytics`` gives the fixed 8 the port's own kernel-1 tiles,
   ``P_BLK = N_BLK = 64`` (``kernels/xnor_popcount.py``).
@@ -40,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from repro_torch.bnn.layers import LayerSpec
+from repro_torch.bnn.layers import REAL_KINDS, LayerSpec
 from repro_torch.core.parallel_config import CONFIGS, CPU, aspects_of
 from repro_torch.kernels.xnor_popcount import (
     N_BLK,
@@ -67,7 +70,11 @@ LAUNCH_S = 2e-6           # one launch's start-up on the card (chip_smoke.py
 #                           phase 7: kernel 1 at L19, PERF.md §6); a copy
 #                           between host and card pays it too
 # --- the host CPU beside the card (estimates, not measured) ---------------
+FP32_RATE = 67e12         # FLOP/s of FP32 (data sheet, H100 SXM); a
+#                           real-valued layer runs in float32, TF32 off
 HOST_MEM_BW = 80e9        # bytes/s eager PyTorch reaches: 8 cores x ~10 GB/s
+HOST_FP32_RATE = 2e11     # FLOP/s of float32 convs and products on the
+#                           8 host cores (~25 GFLOP/s a core)
 HOST_GEMM_BYTES = 300     # bytes the plain xnor GEMM (kernels/ref.py) moves
 #                           per (row, neuron, word): ~19 eager ops over the
 #                           (B, P, N) accumulator, most of them in int64
@@ -99,8 +106,9 @@ class GemmDims:
 
 
 def gemm_dims_for(spec: LayerSpec, batch: int) -> GemmDims | None:
-    if spec.kind == "conv":
-        h, w, cin = spec.in_shape
+    if spec.kind in ("conv", "bireal"):
+        h, w = spec.out_shape[:2]
+        cin = spec.in_shape[-1]
         return GemmDims(
             b=batch, p=h * w, n=spec.units, kw=9 * math.ceil(cin / 32)
         )
@@ -279,13 +287,82 @@ def elementwise_transfer_times_h100(spec: LayerSpec, batch: int) -> tuple:
     return _copy_s(n_bytes), _copy_s(n_bytes)
 
 
+# eager device operations each real-valued layer's code launches
+# (bnn.layers): normalize + conv; pool; sign, pack, pad, gather, GEMM,
+# correction, affine, shortcut; mean; addmm
+_REAL_LAUNCHES = {"stem": 4, "mpr": 1, "bireal": 12, "gap": 1, "fcr": 1}
+
+
+def real_macs(spec: LayerSpec) -> int:
+    """Real (float32) multiply-adds per example of a real-valued layer:
+    the stem's 7x7 conv, a projecting shortcut's 1x1 conv, the
+    classifier."""
+    if spec.kind == "stem":
+        h, w, c = spec.out_shape
+        return h * w * c * 49 * spec.in_shape[-1]
+    if spec.kind == "bireal" and spec.projects:
+        h, w, c = spec.out_shape
+        return h * w * c * spec.in_shape[-1]
+    if spec.kind == "fcr":
+        return spec.in_shape[0] * spec.units
+    return 0
+
+
+def real_io_bytes(spec: LayerSpec) -> tuple:
+    """(input, output) bytes per example: uint8 pixels into the stem,
+    float32 everywhere else in a real-valued network."""
+    n_in = math.prod(spec.in_shape)
+    return n_in * (1 if spec.kind == "stem" else 4), 4 * math.prod(
+        spec.out_shape)
+
+
+def real_layer_kernel_time_h100(
+    spec: LayerSpec, config: str, batch: int, registry=None
+) -> float:
+    """Kernel-only seconds of a real-valued layer at `batch`: its float32
+    multiply-adds over the FP32 rate against its bytes over HBM (each
+    eager pass reads and writes its tensors), plus one start-up a launch;
+    a Bi-Real unit adds its binary conv, priced as the GEMM of `config`.
+    Placed on the host: the same work at the host's rates."""
+    host = _is_host(config, registry)
+    flops = 2.0 * real_macs(spec) * batch
+    a_in, a_out = real_io_bytes(spec)
+    moved = a_in + a_out
+    gemm = 0.0
+    if spec.kind == "stem":
+        moved += 2 * 4 * math.prod(spec.in_shape)      # the float image
+    elif spec.kind == "bireal":
+        dims = gemm_dims_for(spec, batch)
+        h, w, _ = spec.in_shape
+        words = h * w * (dims.kw // 9) * 4
+        # the sign read, words out and in, patches out; sums, correction,
+        # affine and shortcut passes over the output
+        moved += a_in + 2 * words + dims.a_bytes // batch + 3 * a_out
+        gemm = gemm_kernel_time_h100(dims, config, registry)
+    elif spec.kind == "fcr":
+        moved += 4 * spec.in_shape[0] * spec.units    # the weights
+    moved *= batch
+    if host:
+        return flops / HOST_FP32_RATE + moved / HOST_MEM_BW + gemm
+    return (max(flops / FP32_RATE, moved / HBM_BW) + gemm
+            + _REAL_LAUNCHES[spec.kind] * LAUNCH_S)
+
+
 def layer_time_split_h100(
     spec: LayerSpec, config: str, batch: int, registry=None
 ) -> tuple:
     """(kernel_s, h2d_s, d2h_s) for one layer at `batch` (whole batch,
     not per example).  The transfer terms are placement costs of the
-    layer's operand and result, independent of the aspect config; CPU
-    placement reports zero transfer."""
+    layer's operand and result at their true bytes, independent of the
+    aspect config; CPU placement reports zero transfer."""
+    if spec.kind in REAL_KINDS:
+        a_in, a_out = real_io_bytes(spec)
+        return _split(
+            real_layer_kernel_time_h100(spec, config, batch, registry),
+            (_copy_s(batch * a_in), _copy_s(batch * a_out)),
+            config,
+            registry,
+        )
     dims = gemm_dims_for(spec, batch)
     if dims is None:
         return _split(

@@ -26,8 +26,15 @@ copies (made once, when the node functions are built).  A node with a
 ``fused_variant`` runs the segment-scope kernel from the variant
 registry (one launch, activations bit-packed between its layers); any
 other node composes its layers' implementations in plain Python —
-torch runs eagerly, there is nothing to compile.  All arithmetic is
-integer/bool, so every form is bit-exact.
+torch runs eagerly, there is nothing to compile.  All arithmetic of the
+packed grammar is integer/bool, so every form is bit-exact; a real-valued
+network's float layers give the same bits wherever the same device runs
+them.
+
+**Spans.**  With :mod:`repro_torch.spans` recording, each layer a
+composed node runs is a ``layer.run`` span (layer index, and the
+micro-batch the enclosing pipeline span names); off, a node's call costs
+one attribute test.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import spans
+from repro_torch.bnn.layers import GEMM_KINDS
 from repro_torch.bnn.models import BNNModel, params_to
 from repro_torch.core.mapper import EfficientConfiguration
 from repro_torch.core.parallel_config import is_host_config
@@ -50,7 +59,7 @@ def _layer_fn(spec, packed, config: str, registry=None) -> Callable:
     kernel-variant registry; `packed` already lies on the layer's
     placement."""
     reg = registry if registry is not None else DEFAULT_REGISTRY
-    builder = reg.get(config).builder if spec.kind in ("conv", "fc") else None
+    builder = reg.get(config).builder if spec.kind in GEMM_KINDS else None
     return layer_fn(spec, packed, builder)
 
 
@@ -100,17 +109,30 @@ def build_node_fns(
                     model.specs[sl], params[sl],
                     config.layer_configs[sl], placed[sl],
                 )
-            ])
+            ], start=node.start)
         out.append((node, fn))
     return out
 
 
-def _compose(placed_fns) -> Callable:
-    """Run `placed_fns` ``[(device, fn), ...]`` in order, moving the
-    activation only where the placement changes."""
+def _compose(placed_fns, start: int = 0) -> Callable:
+    """Run `placed_fns` ``[(device, fn), ...]`` (layers `start`, `start`
+    + 1, ...) in order, moving the activation only where the placement
+    changes; recording, each layer is a ``layer.run`` span."""
     placed_fns = tuple(placed_fns)
 
+    def recorded(x):
+        mb = spans.enclosing_a()
+        for i, (d, f) in enumerate(placed_fns, start):
+            sp = spans.open("layer.run", i, mb)
+            if x.device != d:
+                x = x.to(d)
+            x = f(x)
+            spans.close(sp)
+        return x
+
     def fn(x):
+        if spans.on:
+            return recorded(x)
         for d, f in placed_fns:
             if x.device != d:
                 x = x.to(d)

@@ -73,6 +73,8 @@ from repro_torch.core.mapper import (
 
 PACKED = "packed"        # int32 bitplane words, 32 activations/word
 UNPACKED = "unpacked"    # one int32 pre-activation per element
+IMAGE = "image"          # uint8 NHWC pixels, a real-valued network's input
+REAL = "real"            # float32, the residual stream of a real network
 
 MODES = ("segments", "layers", "roundtrip", "whole")
 
@@ -88,6 +90,8 @@ def kind_of_label(label: str) -> str:
     the longer tokens first so ``FLAT``/``FC`` never read as conv."""
     token = label.split(":", 1)[-1]
     for prefix, kind in (
+        ("STEM", "stem"), ("MPR", "mpr"), ("BR", "bireal"), ("GAP", "gap"),
+        ("FCR", "fcr"),
         ("MP", "mp"), ("FLAT", "flat"), ("FC", "fc"),
         ("C", "conv"), ("S", "step"),
     ):
@@ -103,18 +107,31 @@ _KIND_ENCODINGS = {
     "fc": (PACKED, UNPACKED),
     "step": (UNPACKED, PACKED),
     "flat": (PACKED, PACKED),
+    "stem": (IMAGE, REAL),
+    "mpr": (REAL, REAL),
+    "bireal": (REAL, REAL),
+    "gap": (REAL, REAL),
+    "fcr": (REAL, REAL),
 }
+
+
+def input_encoding(kinds) -> str:
+    """The network input's encoding: uint8 images before a real stem,
+    packed words (``prepare_input_packed``) before anything else."""
+    kinds = tuple(kinds)
+    return IMAGE if kinds and kinds[0] == "stem" else PACKED
 
 
 def layer_encodings(kinds) -> tuple:
     """Per-layer (in_encoding, out_encoding) for a kind sequence,
-    chained from the packed network input (``prepare_input_packed``).
+    chained from the network input (:func:`input_encoding`).
     Raises :class:`PlanError` where a layer's required input encoding
     does not match its predecessor's output — such a sequence has no
     bit-exact executor (feeding unpacked pre-activations to a packed
     GEMM computes garbage), so it must not silently build."""
+    kinds = tuple(kinds)
     out = []
-    cur = PACKED
+    cur = input_encoding(kinds)
     for i, kind in enumerate(kinds):
         if kind == "mp":
             out.append((cur, cur))
@@ -133,14 +150,22 @@ def layer_encodings(kinds) -> tuple:
     return tuple(out)
 
 
+def require_binary_labels(labels, what: str) -> None:
+    """Raise a ValueError naming the first real-valued layer among a
+    profile's `labels`: `what` handles only the packed grammar."""
+    from repro_torch.bnn.layers import require_binary_kinds
+
+    require_binary_kinds([kind_of_label(x) for x in labels], what)
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerOp:
     """One layer inside a plan node."""
 
     index: int            # layer index in the model
-    kind: str             # conv | mp | step | flat | fc
+    kind: str             # conv | mp | step | flat | fc, or a real kind
     config: str           # kernel-variant / aspect-config name
-    in_encoding: str      # PACKED or UNPACKED
+    in_encoding: str      # PACKED, UNPACKED, IMAGE or REAL
     out_encoding: str
 
     @property

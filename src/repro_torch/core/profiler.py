@@ -59,6 +59,7 @@ from repro_torch.kernels.registry import (
     GemmShape,
     segment_shape_of,
 )
+from repro_torch.kernels.segment_fused import lowerable
 
 TIME_SOURCES = ("measured", "analytic")
 
@@ -271,8 +272,11 @@ def _measure_d2h(x_dev: torch.Tensor, repeats: int) -> float:
 
 def layer_fn(spec: L.LayerSpec, packed: dict, builder=None) -> Callable:
     """The layer's computation with `packed` params (already on the
-    device the layer runs on); GEMM layers go through the variant's
-    `builder` ``(a, w, k_true) -> out``."""
+    device the layer runs on); GEMM layers (conv, fc, a Bi-Real unit's
+    binary conv) go through the variant's `builder` ``(a, w, k_true) ->
+    out``."""
+    if spec.kind in L.REAL_KINDS:
+        return L.real_layer_fn(spec, packed, builder)
     if spec.kind == "conv":
         w, k_true = packed["w_words"], packed["k_true"]
 
@@ -297,15 +301,23 @@ def layer_fn(spec: L.LayerSpec, packed: dict, builder=None) -> Callable:
 
 
 def _capture_layer_inputs(
-    model: BNNModel, packed_host: list, x_words: torch.Tensor
+    model: BNNModel, packed_host: list, x_words: torch.Tensor,
+    packed_dev: list | None = None, dev: torch.device | None = None,
 ) -> list:
     """Run the plain forward on host tensors, returning each layer's
-    input."""
+    input (on the host).  A real-valued network (uint8 images in) runs it
+    on `dev` with ``packed_dev`` and kernel 1 under ``XYZ`` where a card
+    measures: the host's xnor GEMM would take minutes at ImageNet's
+    sizes, and every sum is exact either way."""
     builder = DEFAULT_REGISTRY.get("CPU").builder
+    params = packed_host
+    if model.takes_images and dev is not None and dev.type == "cuda":
+        builder, params = DEFAULT_REGISTRY.get("XYZ").builder, packed_dev
+        x_words = x_words.to(dev)
     xs = []
     x = x_words
-    for spec, p in zip(model.specs, packed_host):
-        xs.append(x)
+    for spec, p in zip(model.specs, params):
+        xs.append(x.to(HOST))
         x = layer_fn(spec, p, builder)(x)
     return xs
 
@@ -332,12 +344,12 @@ def prune_survivors(
 def gemm_shape_of(spec: L.LayerSpec, packed: dict, batch: int):
     """The GEMM dispatch shape of a conv/fc layer at `batch` (None for
     elementwise layers) — what variant applicability predicates see."""
-    if spec.kind not in ("conv", "fc"):
+    if spec.kind not in L.GEMM_KINDS:
         return None
     w_words = packed["w_words"]
     n, kw = int(w_words.shape[0]), int(w_words.shape[1])
-    if spec.kind == "conv":
-        h, w, _ = spec.in_shape
+    if spec.kind != "fc":
+        h, w = spec.out_shape[:2]
         return GemmShape(b=batch, p=h * w, n=n, kw=kw)
     return GemmShape(b=batch, p=1, n=n, kw=kw)
 
@@ -376,7 +388,7 @@ def _measured_rows(
     for cfg in candidates:
         host = is_host_config(cfg, registry)
         builder = (
-            registry.get(cfg).builder if spec.kind in ("conv", "fc") else None
+            registry.get(cfg).builder if spec.kind in L.GEMM_KINDS else None
         )
         f = layer_fn(spec, p_host if host else p_dev, builder)
         runs[cfg] = (host, f, x_host if host else x_dev)
@@ -408,9 +420,12 @@ def _measured_rows(
 
 
 def _random_input(model: BNNModel, batch: int, rng) -> torch.Tensor:
-    x01 = rng.random(
-        (batch, *model.input_hw, model.in_channels), dtype=np.float32
-    )
+    """A batch of random requests: packed words of [0, 1) images, or
+    uint8 images for a real-valued network."""
+    shape = (batch, *model.input_hw, model.in_channels)
+    if model.takes_images:
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+    x01 = rng.random(shape, dtype=np.float32)
     return prepare_input_packed(torch.from_numpy(x01))
 
 
@@ -450,7 +465,7 @@ def _profile(
         if time_source == "measured":
             x_words = _random_input(model, batch, rng)
             layer_inputs = _capture_layer_inputs(
-                model, packed_host, x_words
+                model, packed_host, x_words, packed_dev, dev
             )
         rows = []
         for i, (spec, ph) in enumerate(zip(model.specs, packed_host)):
@@ -599,7 +614,9 @@ def profile_segment_variants(
     per example: the segment's boundary transfers are unchanged by
     fusion and stay priced by the per-layer h2d/d2h rows.  Spans must be
     device-resident layer runs — typically
-    ``core.plan.device_spans(config)``.
+    ``core.plan.device_spans(config)``; a span ``segment_cuda`` cannot
+    lower (a real-valued layer in it) is skipped, so it never gets a
+    row and is never chosen for fusion.
     """
     _check_time_source(time_source)
     measured = time_source == "measured"
@@ -621,10 +638,12 @@ def profile_segment_variants(
         if measured:
             x_words = _random_input(model, batch, rng)
             layer_inputs = _capture_layer_inputs(
-                model, packed_host, x_words
+                model, packed_host, x_words, packed_dev, dev
             )
         for start, stop in spans:
             specs = tuple(model.specs[start:stop])
+            if not lowerable(specs):
+                continue
             shape = segment_shape_of(specs, packed_host[start:stop], batch)
             if measured:
                 x_in = layer_inputs[start].to(dev)

@@ -51,7 +51,11 @@ from typing import Sequence
 import torch
 
 from repro_torch.bnn.binarize import PACK_W, packed_len
-from repro_torch.bnn.layers import LayerSpec, parse_notation
+from repro_torch.bnn.layers import (
+    LayerSpec,
+    parse_notation,
+    require_binary_kinds,
+)
 from repro_torch.bnn.models import BNNModel
 
 
@@ -318,6 +322,8 @@ class SubnetFamily:
     ) -> "SubnetFamily":
         """Derive the family from a packed base model.  `packed` is
         ``pack_params(model.specs, trained_params)`` output."""
+        require_binary_kinds([s.kind for s in model.specs],
+                             "an elastic subnet family")
         if len(packed) != len(model.specs):
             raise ValueError(
                 f"packed params ({len(packed)}) do not match model "

@@ -49,6 +49,7 @@ from repro_torch.core.mapper import (
     price_mapping,
 )
 from repro_torch.core.parallel_config import is_host_config
+from repro_torch.core.plan import require_binary_labels
 from repro_torch.core.profiler import ProfileTable
 
 
@@ -280,6 +281,8 @@ def map_fleet(
     """
     if not tables:
         raise ValueError("map_fleet needs at least one tenant table")
+    for t in tables:
+        require_binary_labels(t.layer_labels, "the fleet's joint mapping")
     if names is not None and len(names) != len(tables):
         raise ValueError("names must match tables one-to-one")
     if shares is not None and len(shares) != len(tables):

@@ -47,6 +47,14 @@ UNPACKED = "unpacked"
 _IN_ENCODING = {
     "conv": PACKED, "fc": PACKED, "flat": PACKED, "step": UNPACKED,
 }
+#: the kinds the kernel lowers (the packed grammar); a span holding any
+#: other is never profiled or chosen for fusion
+LOWERED_KINDS = ("conv", "mp", "step", "flat", "fc")
+
+
+def lowerable(specs: Sequence[L.LayerSpec]) -> bool:
+    """Whether ``segment_cuda`` can lower the span `specs`."""
+    return all(spec.kind in LOWERED_KINDS for spec in specs)
 
 # descriptor table layout — must match csrc/segment_fused.cu
 OP_CONV, OP_FC, OP_POOL, OP_STEP, OP_COPY = range(5)
@@ -87,8 +95,9 @@ def infer_in_encoding(specs: Sequence[L.LayerSpec]) -> str:
 def encoded_shape(shape: tuple, encoding: str) -> tuple:
     """Per-example array shape for a logical (unpacked) layer shape
     under `encoding`: packed divides the channel axis into 32-bit
-    words."""
-    if encoding == UNPACKED:
+    words; every other encoding (unpacked int32, and a real network's
+    uint8 images and float32 activations) keeps one element a value."""
+    if encoding != PACKED:
         return tuple(shape)
     return tuple(shape[:-1]) + (math.ceil(shape[-1] / PACK_W),)
 

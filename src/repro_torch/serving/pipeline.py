@@ -16,9 +16,12 @@ CPU tensors, overlapping the host work of micro-batch *i+1* with the
 queued device work of micro-batch *i*.
 
 **The graph path.**  A device segment that is one fused launch of a
-segment-scope kernel (its plan node carries a ``fused_variant``), on a
-CUDA device, with the callable this pipeline built (not one wrapped
-after the build), is served by captured CUDA graphs.  At the first
+segment-scope kernel (its plan node carries a ``fused_variant``), or a
+run of real-valued layers (Bi-Real Net's kinds, which no segment-scope
+kernel lowers; eagerly each layer is a dozen or more launches, and the
+host's launch path, not the card, would set the pace), on a CUDA
+device, with the callable this pipeline built (not one wrapped after
+the build), is served by captured CUDA graphs.  At the first
 micro-batch of each batch size the pipeline runs one eager launch of
 that size (it loads the kernel library and caches what the launch asks
 of the card), then captures a *ring* of ``RING_SLOTS`` slots for it.
@@ -37,24 +40,32 @@ is written again only after the result it held has been read, which the
 one-wave lag guarantees with two slots.  A capture launches nothing:
 the wrappers' launch counters (``repro_torch.kernels.launch_counts``)
 are put back after it, and each replay adds what its capture counted,
-so ``segment_cuda.launches`` still counts one per micro-batch.
+so ``segment_cuda.launches`` still counts one per micro-batch (and
+``xnor_gemm_cuda.launches`` one per Bi-Real unit).  A replay runs none of
+its layers' Python, so it records no ``layer.run`` spans.
 
 Every other device segment runs **eagerly**, as it always did:
-per-layer device segments, callables wrapped after the build (e.g. to
-inject contention), and every segment on a CPU device.  Its input is
-uploaded from pinned host memory with a non-blocking copy a wave ahead
-(double-buffered), and its output is copied back with a non-blocking
-copy into a fresh pinned buffer with a ``torch.cuda.Event`` recorded
-behind it; the host synchronises that event only when it reads the
-result.  (A non-blocking copy into pageable memory, read before a sync,
-returns garbage: the buffer is always pinned and always synchronised.)
+per-layer device segments of the packed grammar, callables wrapped
+after the build (e.g. to inject contention), and every segment on a
+CPU device.  Its input is uploaded from pinned host memory with a
+non-blocking copy a wave ahead (double-buffered), and its output is
+copied back with a non-blocking copy into a fresh pinned buffer with a
+``torch.cuda.Event`` recorded behind it; the host synchronises that
+event only when it reads the result.  The pipeline's own outputs are
+copied out of that buffer, as out of a ring slot, so a caller keeps
+its answers without holding pinned memory, and the host allocator
+reuses the buffer.  (A non-blocking copy into pageable memory, read
+before a sync, returns garbage: the buffer is always pinned and always
+synchronised.)
 
 ``counts`` (:class:`GraphCounts`) counts graphs captured, their
 replays and device segments run eagerly; an engine passes one object
 to every pipeline it builds, so they survive swaps.
 
-All arithmetic is int32/bool, so pipelined, serial, graphed and fused
-execution are bit-exact for the same inputs.
+All arithmetic of the packed grammar is int32/bool, so pipelined,
+serial, graphed and fused execution are bit-exact for the same inputs;
+a real-valued segment's graph replays the kernels its eager launch
+runs.
 
 **Observer hook.**  :meth:`SegmentPipeline.run_pipelined` accepts an
 ``observer`` — a callable ``observer(seg_index, segment, seconds,
@@ -74,8 +85,8 @@ segment index), ``pipeline.launch`` (a device segment's host path up to
 its launches' return, or a replay and its event; micro-batch, segment
 index), ``pipeline.host`` (a host segment; the same),
 ``pipeline.download`` (pinned buffer, D2H and event queued; from a
-ring slot, the rows copied out once its event is waited on;
-micro-batch) and ``pipeline.d2h_wait`` (the host blocked on a result's
+ring slot or a last segment's buffer, the rows copied out once its event
+is waited on; micro-batch) and ``pipeline.d2h_wait`` (the host blocked on a result's
 event; micro-batch).
 """
 
@@ -89,6 +100,7 @@ import numpy as np
 import torch
 
 from repro_torch import spans
+from repro_torch.bnn.layers import REAL_KINDS
 from repro_torch.bnn.models import BNNModel
 from repro_torch.core.mapped_model import build_node_fns, to_device
 from repro_torch.core.mapper import EfficientConfiguration
@@ -191,6 +203,8 @@ class SegmentPipeline:
             model, packed_params, config, plan, registry, device=self.device
         )
         self._built = tuple(fn for _, fn in self.segment_fns)
+        self._real = tuple(all(op.kind in REAL_KINDS for op in node.ops)
+                           for node, _ in self.segment_fns)
         self.counts = GraphCounts() if counts is None else counts
         self._rings: dict = {}   # (segment index, batch) -> _Ring
 
@@ -200,12 +214,13 @@ class SegmentPipeline:
 
     def _graphed(self, s: int) -> bool:
         """Whether segment `s` is served by captured graphs: one fused
-        launch on a CUDA device, through the callable built here."""
+        launch, or real-valued layers only, on a CUDA device, through
+        the callable built here."""
         node, fn = self.segment_fns[s]
         return (
             self.device.type == "cuda"
             and node.on_device
-            and node.fused_variant is not None
+            and (node.fused_variant is not None or self._real[s])
             and fn is self._built[s]
         )
 
@@ -230,21 +245,23 @@ class SegmentPipeline:
         return _Download(host, done)
 
     @staticmethod
-    def _on_host(x, i: int) -> torch.Tensor:
+    def _on_host(x, i: int, output: bool = False) -> torch.Tensor:
         """The host tensor behind `x` (micro-batch `i`), waiting for its
-        D2H if pending; a ring slot's result is copied out of the slot."""
+        D2H if pending; a ring slot's result, and a download that is the
+        pipeline's `output`, are copied out of their pinned memory."""
         if isinstance(x, (_Download, _Slot)):
             sp = spans.open("pipeline.d2h_wait", i) if spans.on else None
             x.done.synchronize()
             if sp is not None:
                 spans.close(sp)
-            if isinstance(x, _Slot):
+            pinned = x.host_out if isinstance(x, _Slot) else x.host
+            if isinstance(x, _Slot) or output:
                 sp = spans.open("pipeline.download", i) if spans.on else None
-                out = torch.from_numpy(x.host_out.numpy().copy())
+                out = torch.from_numpy(pinned.numpy().copy())
                 if sp is not None:
                     spans.close(sp)
                 return out
-            return x.host
+            return pinned
         return x
 
     def _capture(self, s: int, x) -> _Ring:
@@ -365,7 +382,7 @@ class SegmentPipeline:
                 spans.close(sp)
 
         def finish(i):
-            outputs[i] = self._on_host(state[i], i).numpy()
+            outputs[i] = self._on_host(state[i], i, output=True).numpy()
             state[i] = None
             if on_complete is not None:
                 on_complete(i, outputs[i])

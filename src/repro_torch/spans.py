@@ -126,6 +126,17 @@ def close(h: int, a: int | None = None, b: int | None = None) -> None:
         buf.b[i] = b
 
 
+def enclosing_a() -> int:
+    """The ``a`` of the innermost span open on this thread (0 for none):
+    how a site that does not know its micro-batch names it from the
+    pipeline span around it."""
+    buf = _buffers.get(_get_ident())
+    if buf is None or not buf.stack:
+        return 0
+    i = buf.stack[-1] - buf.base
+    return buf.a[i] if i >= 0 else 0    # taken while open: unknown
+
+
 def discard(h: int) -> None:
     """Close `h` and leave it out of what ``take`` returns."""
     close(h)
