@@ -107,6 +107,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the rows before the 1-bit product); ``torch._int_mm`` on the same
    dot products unpacked to +-1 int8 as a yardstick only (not the same
    function: 8x the input bytes);
+7b. the Bi-Real unit's two kernels (``bireal_unit_phase``):
+   ``bireal_patches_cuda`` and ``bireal_epilogue_cuda`` at each of the
+   16 unit shapes of Bi-Real Net-18 at 224x224, B 32, each equal to its
+   plain version, their device time per launch (the profiler) beside
+   their byte bound and the plain versions' time per call (CUDA
+   events), printed for stage 1 (56x56x64) and stage 4 (7x7x512) and
+   summed over the 16 units;
 8. the profile store: a second ``ProfileStore`` on the same root warm
    starts (``get_or_profile`` with a profiler that raises if called
    must return the stored table, equal to phase 5's), its time beside
@@ -632,6 +639,8 @@ BF16_FLOP_PER_S = 989e12
 # rate per SM per clock for compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput).
 HBM_BYTES_PER_S = 3.35e12
+# phase 7b: the batch of a micro-batch in the cell bireal18-224.flood
+BIREAL_BATCH = 32
 POPC_PER_SM_PER_CLOCK = 16
 
 
@@ -3770,6 +3779,86 @@ def demo_rank(rank: int, plan: dict) -> dict:
     return out
 
 
+def bireal_unit_phase(dev) -> dict:
+    """Phase 7b: the Bi-Real unit's patches and epilogue kernels at every
+    unit shape of Bi-Real Net-18 at B BIREAL_BATCH against their plain
+    versions, timed beside their byte bounds; returns the two kernels'
+    rows for the JSON line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bnn.layers import strided_side
+    from repro_torch.bnn.models import (
+        build_model, pack_real, packed_params_from_numpy, random_real_params,
+    )
+    from repro_torch.kernels import bireal_unit as U
+
+    b = BIREAL_BATCH
+    gen = torch.Generator(device=dev).manual_seed(0)
+    units = [s for s in build_model("bireal18").specs if s.kind == "bireal"]
+    per_shape, rows = {}, {"patches": [], "epilogue": []}
+    for i, spec in enumerate(units):
+        (h, w, cin), cout, stride = spec.in_shape, spec.units, spec.stride
+        key = (h, w, cin, cout, stride)
+        if key not in per_shape:
+            fp = random_real_params(spec, np.random.default_rng(i))
+            p = packed_params_from_numpy([pack_real(spec, fp)], dev)[0]
+            ho, wo = strided_side(h, stride), strided_side(w, stride)
+            x = torch.randn(b, h, w, cin, generator=gen, device=dev)
+            k = p["k_true"]
+            acc = torch.randint(-k, k + 1, (b, ho * wo, cout), generator=gen,
+                                device=dev, dtype=torch.int32)
+            res = torch.randn(b, ho, wo, cout, generator=gen, device=dev)
+            ep = (acc, p["corr"], p["scale"], p["shift"], res)
+            pat = U.bireal_patches_cuda(x, stride)
+            if not torch.equal(pat, U.bireal_patches_plain(x, stride)):
+                raise AssertionError(f"bireal_patches_cuda {key}: words "
+                                     f"differ from the plain version's")
+            if not torch.equal(U.bireal_epilogue_cuda(*ep),
+                               U.bireal_epilogue_plain(*ep)):
+                raise AssertionError(f"bireal_epilogue_cuda {key}: floats "
+                                     f"differ from the plain version's")
+            t = {}
+            for name, fn, plain, kernel, n_bytes in (
+                    ("patches", lambda: U.bireal_patches_cuda(x, stride),
+                     lambda: U.bireal_patches_plain(x, stride),
+                     "bireal_patches_kernel",
+                     4 * (x.numel() + pat.numel())),
+                    ("epilogue", lambda: U.bireal_epilogue_cuda(*ep),
+                     lambda: U.bireal_epilogue_plain(*ep),
+                     "bireal_epilogue_kernel",
+                     4 * (3 * res.numel() + p["corr"].numel() + 2 * cout))):
+                ms, how = kernel_ms(fn, kernel, 50)
+                t[name] = (ms, how, time_ms(fn, 50), time_ms(plain, 20),
+                           n_bytes / HBM_BYTES_PER_S * 1e3, n_bytes)
+            per_shape[key] = t
+            for name, (ms, how, call, plain, bound, n_bytes) in t.items():
+                log(f"[bireal unit] {name} B={b} {h}x{w}x{cin}->{cout}/"
+                    f"{stride}: device {ms:.5f} ms ({how}), per call "
+                    f"{call:.5f} ms, plain {plain:.4f} ms, bound {bound:.5f} "
+                    f"ms ({n_bytes / 1e6:.2f} MB), {100 * bound / ms:.1f} % "
+                    f"of it")
+        for name in rows:
+            rows[name].append(per_shape[key][name])
+    out = {}
+    for name, rs in rows.items():
+        ms = sum(r[0] for r in rs)
+        plain = sum(r[3] for r in rs)
+        bound = sum(r[4] for r in rs)
+        n_bytes = sum(r[5] for r in rs)
+        log(f"[bireal unit] {name} B={b}, the {len(rs)} units: device "
+            f"{ms:.5f} ms summed ({ms / b * 1e3:.3f} us an image), plain "
+            f"{plain:.4f} ms, bound {bound:.5f} ms ({n_bytes / 1e6:.1f} MB, "
+            f"{n_bytes / b / 1e6:.2f} MB an image), {100 * bound / ms:.1f} % "
+            f"of it")
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound}
+    both = sum(v["ms"] for v in out.values())
+    log(f"[bireal unit] both kernels B={b}: {both:.5f} ms summed over the "
+        f"units, plain chain {sum(v['plain_ms'] for v in out.values()):.4f} "
+        f"ms, bound {sum(v['bound_ms'] for v in out.values()):.5f} ms")
+    return out
+
+
 def examples_phase(dev) -> dict:
     """Phase 18: each ``examples/torch_*.py`` of ``EXAMPLES``, imported
     by path and run in-process through its ``main([...])`` at its own
@@ -4576,6 +4665,8 @@ def main() -> int:
     log(f"[time] segment_cuda B={batch} one layer per launch (device ms): "
         + " ".join(f"[{k}] {v:.4f}" for k, v in parts)
         + f"; sum {sum(v for _, v in parts):.4f}")
+    # -- 7b. the Bi-Real unit's two kernels ------------------------------
+    unit = bireal_unit_phase(dev)
     # -- 8. the profile store: warm start ---------------------------------
     t_phase = time.perf_counter()
     def no_profiling(*args, **kwargs):
@@ -5030,6 +5121,13 @@ def main() -> int:
          "bound_by": k2_by, "library_ms": None,
          "launches_phase_18": {k: v["segment_cuda"]
                                for k, v in ex_bnn.items()}},
+        *({"name": f"bireal_{name}_cuda", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/bireal_unit.cu",
+           "replaces": None, "max_abs_err": 0, "ms": v["ms"],
+           "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+           "bound_by": "bytes", "library_ms": None,
+           "path": f"the 16 units of bireal18 at B {BIREAL_BATCH}, summed"}
+          for name, v in unit.items()),
         {"name": "flash_attention_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73",

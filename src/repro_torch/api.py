@@ -662,9 +662,11 @@ class Deployment:
         the engine's micro-batch and row counters, the profile store's
         hits and misses (with a store), the device segments served by
         captured graphs and eagerly (``graph_captures``,
-        ``graph_replays``, ``eager_device_segments``), and
-        ``compiles``, the kernel builds' ``nvcc`` runs in this
-        process."""
+        ``graph_replays``, ``eager_device_segments``),
+        ``unit_launches``, the Bi-Real units' sign-pack and epilogue
+        kernel launches in this process (one each a device-placed unit
+        a micro-batch), and ``compiles``, the kernel builds' ``nvcc``
+        runs in this process."""
         if self.cluster is not None:
             return self.cluster.stats()
         if self.router is not None:
@@ -678,6 +680,7 @@ class Deployment:
                 ]
             return out
         from repro_torch.kernels import build
+        from repro_torch.kernels.bireal_unit import UNIT_KERNELS
 
         e = self._serving()
         out = {
@@ -690,6 +693,7 @@ class Deployment:
             "real_rows": e.real_rows,
             "pad_rows": e.pad_rows,
             **dataclasses.asdict(e.graph_counts),
+            "unit_launches": sum(k.launches for k in UNIT_KERNELS),
             "compiles": build.compiles,
         }
         store = self._knobs.get("store")

@@ -473,26 +473,32 @@ def bireal_sums(
     padding, exact int32 (B, Ho*Wo, Cout): the packed GEMM `gemm` (a
     registry variant's builder) over the patches of the sign words
     (``x >= 0`` is bit 1), plus the padding correction."""
-    b = x.shape[0]
-    patches = extract_patch_words(pack_bits(x >= 0), stride)
-    acc = gemm(patches.reshape(b, -1, patches.shape[-1]), p["w_words"],
-               p["k_true"])
+    from repro_torch.kernels.bireal_unit import bireal_patches_cuda
+
+    acc = gemm(bireal_patches_cuda(x, stride), p["w_words"], p["k_true"])
     return acc + p["corr"]
 
 
 def bireal_unit(x: torch.Tensor, p: dict, stride: int, gemm) -> torch.Tensor:
     """float32 (B,H,W,Cin) -> (B,Ho,Wo,Cout):
     ``scale * sums + shift + shortcut(x)``, with ``alpha`` and the batch
-    norm folded into the per-channel ``scale`` and ``shift``."""
-    b, h, w, _ = x.shape
-    sums = bireal_sums(x, p, stride, gemm)
-    y = torch.addcmul(p["shift"], sums.to(REAL_DTYPE), p["scale"])
-    y = y.view(b, strided_side(h, stride), strided_side(w, stride), -1)
+    norm folded into the per-channel ``scale`` and ``shift``.  On a card
+    the sign pack and gather, and the epilogue, are one kernel each
+    around `gemm` (``repro_torch.kernels.bireal_unit``); on the host the
+    same wrappers run their plain versions."""
+    from repro_torch.kernels.bireal_unit import (
+        bireal_epilogue_cuda,
+        bireal_patches_cuda,
+    )
+
+    acc = gemm(bireal_patches_cuda(x, stride), p["w_words"], p["k_true"])
     if "sc_w" not in p:
-        return y.add_(x)
-    with fp32_convs():
-        s = F.conv2d(F.avg_pool2d(_nchw(x), 2, 2), p["sc_w"], p["sc_b"])
-    return y.add_(_nhwc(s))
+        res = x
+    else:
+        with fp32_convs():
+            s = F.conv2d(F.avg_pool2d(_nchw(x), 2, 2), p["sc_w"], p["sc_b"])
+        res = _nhwc(s)
+    return bireal_epilogue_cuda(acc, p["corr"], p["scale"], p["shift"], res)
 
 
 def gap_real(x: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,9 @@
   (``csrc/xnor_gemm.cu``).
 * ``segment_fused`` — ``segment_cuda``, a whole device segment in one
   launch (``csrc/segment_fused.cu``).
+* ``bireal_unit`` — ``bireal_patches_cuda`` and ``bireal_epilogue_cuda``,
+  a Bi-Real unit's sign pack and gather, and its float epilogue, on
+  either side of kernel 1 (``csrc/bireal_unit.cu``).
 * ``flash_attention`` — ``flash_attention_cuda``, blockwise
   online-softmax attention for LM prefill (``csrc/flash_attention.cu``),
   with its blockwise plain version ``flash_attention_plain``.
@@ -20,6 +23,9 @@ Each wrapper keeps a plain integer count of its launches
 (``xnor_gemm_cuda.launches``, ``segment_cuda.launches``,
 ``flash_attention_cuda.launches``; of the last, the launches that also
 write the log-sum-exp in ``flash_attention_cuda.lse_launches``).
+``KERNELS`` and ``launch_counts()`` leave out the Bi-Real unit's two
+(``bireal_unit.UNIT_KERNELS``; ``Deployment.stats()`` reports them as
+``unit_launches``).
 """
 
 from repro_torch.kernels.registry import (

@@ -135,6 +135,11 @@ def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.segment_fused_launch.argtypes = (
             [p] * 5 + [i] * 7 + [ctypes.POINTER(i), p])
         lib.segment_fused_launch.restype = i
+    elif stem == "bireal_unit":
+        lib.bireal_patches_launch.argtypes = [p, p] + [i] * 6 + [p]
+        lib.bireal_patches_launch.restype = i
+        lib.bireal_epilogue_launch.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.bireal_epilogue_launch.restype = i
     elif stem == "flash_attention":
         lib.flash_attention_launch.argtypes = (
             [p] * 5 + [i] * 7 + [ctypes.c_longlong] * 12

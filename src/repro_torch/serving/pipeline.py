@@ -38,10 +38,12 @@ one.  The copy-out is what lets the slot be reused: a caller keeps its
 answers as long as it likes without holding pinned memory, and a slot
 is written again only after the result it held has been read, which the
 one-wave lag guarantees with two slots.  A capture launches nothing:
-the wrappers' launch counters (``repro_torch.kernels.launch_counts``)
-are put back after it, and each replay adds what its capture counted,
-so ``segment_cuda.launches`` still counts one per micro-batch (and
-``xnor_gemm_cuda.launches`` one per Bi-Real unit).  A replay runs none of
+the wrappers' launch counters (``repro_torch.kernels.launch_counts``,
+and the Bi-Real unit's two kernels') are put back after it, and each
+replay adds what its capture counted, so ``segment_cuda.launches``
+still counts one per micro-batch (and ``xnor_gemm_cuda.launches``,
+``bireal_patches_cuda.launches`` and ``bireal_epilogue_cuda.launches``
+one per Bi-Real unit).  A replay runs none of
 its layers' Python, so it records no ``layer.run`` spans.
 
 Every other device segment runs **eagerly**, as it always did:
@@ -121,6 +123,32 @@ def canonical_mixed_mapping(model: BNNModel) -> tuple:
 
 
 RING_SLOTS = 2            # graphs a (device segment, batch size) cycles
+
+
+def counted_kernels() -> tuple:
+    """The wrappers whose launches a replay adds back: ``KERNELS``, and
+    the Bi-Real unit's two (``UNIT_KERNELS``), which ``launch_counts()``
+    leaves out."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.bireal_unit import UNIT_KERNELS
+
+    return KERNELS + UNIT_KERNELS
+
+
+def uncounted(capture: Callable, times: int) -> tuple:
+    """(what `capture()` returns, ``[(wrapper, launches a replay
+    makes)]``): `capture` records a replay's launches `times` times
+    over; every counted wrapper's count is put back after it."""
+    kernels = counted_kernels()
+    before = [k.launches for k in kernels]
+    try:
+        got = capture()
+        launches = [(k, (k.launches - n) // times)
+                    for k, n in zip(kernels, before) if k.launches > n]
+    finally:
+        for k, n in zip(kernels, before):
+            k.launches = n
+    return got, launches
 
 
 @dataclasses.dataclass
@@ -268,17 +296,15 @@ class SegmentPipeline:
         """The ring of segment `s` at `x`'s shape: one eager launch of
         that shape, then RING_SLOTS graphs, each over buffers of its
         own.  The launch counters are put back after the captures."""
-        from repro_torch.kernels import KERNELS
-
         fn = self.segment_fns[s][1]
         x = torch.as_tensor(np.asarray(x))
         with torch.cuda.device(self.device):
             out = fn(to_device(x, self.device))
             torch.cuda.current_stream(self.device).synchronize()
-            before = [k.launches for k in KERNELS]
             side = torch.cuda.Stream(self.device)
-            slots = []
-            try:
+
+            def capture():
+                slots = []
                 for _ in range(RING_SLOTS):
                     host_in = torch.empty(x.shape, dtype=x.dtype,
                                           pin_memory=True)
@@ -293,11 +319,9 @@ class SegmentPipeline:
                         host_out.copy_(fn(dev_in), non_blocking=True)
                     slots.append(_Slot(host_in.numpy(), host_in, dev_in,
                                        host_out, graph, torch.cuda.Event()))
-                launches = [(k, (k.launches - n) // RING_SLOTS)
-                            for k, n in zip(KERNELS, before) if k.launches > n]
-            finally:
-                for k, n in zip(KERNELS, before):
-                    k.launches = n
+                return slots
+
+            slots, launches = uncounted(capture, RING_SLOTS)
         self.counts.graph_captures += RING_SLOTS
         ring = self._rings[(s, x.shape[0])] = _Ring(slots, launches)
         return ring

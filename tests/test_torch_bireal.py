@@ -345,7 +345,9 @@ def test_real_device_segments_take_the_graph_path():
 def test_tiny_net_served_by_graphs_on_the_card():
     """On a card the tiny net's one device segment is replayed from
     captured graphs: answers within the configuration's tolerance of the
-    float64 reference, kernel 1 counted once a unit a micro-batch."""
+    float64 reference, kernel 1 counted once a unit a micro-batch, and
+    the unit's sign-pack and epilogue kernels once each
+    (``unit_launches``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
     model, fp, _ = _tiny()
@@ -358,6 +360,7 @@ def test_tiny_net_served_by_graphs_on_the_card():
     reqs = [dep.submit(xi) for xi in x[:4]]     # the captures' batch
     dep.drain()
     before = xnor_gemm_cuda.launches
+    before_units = dep.stats()["unit_launches"]
     reqs = [dep.submit(xi) for xi in x]
     dep.drain()
     got = np.stack([r.wait() for r in reqs])
@@ -369,6 +372,7 @@ def test_tiny_net_served_by_graphs_on_the_card():
     assert stats["graph_replays"] >= 4 and stats["eager_device_segments"] == 0
     units = sum(s.kind == "bireal" for s in model.specs)
     assert xnor_gemm_cuda.launches - before == 4 * units
+    assert stats["unit_launches"] - before_units == 2 * 4 * units
 
 
 @pytest.mark.cuda
